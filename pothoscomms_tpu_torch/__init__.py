@@ -4,9 +4,28 @@ The port targets one NVIDIA H100 (sm_90a). It imports ``torch`` and never
 ``jax`` or ``pothoscomms_tpu``; the JAX package stays as the reference
 the port is tested against (``tests/test_torch_*.py``).
 
-So far it covers the FIR -> FFT main path (:mod:`.parallel`), with its
-complex products and FFTs on hand-written CUDA kernels (:mod:`.kernels`,
-sources in ``csrc/``).
+So far it covers:
+
+- the FIR -> FFT chain as functions (:mod:`.parallel`), its complex
+  products and FFTs on hand-written CUDA kernels (:mod:`.kernels`,
+  sources in ``csrc/``), and the one-pass FIR+FFT chain on its own
+  kernel (:mod:`.kernels.fir_fft_fused`);
+- the block API: the streaming runtime (:mod:`.core`), the fixture
+  blocks, /comms/fir_filter and /comms/fft (:mod:`.blocks`), the filter
+  designers (:mod:`.design`) and auto-fusion (:mod:`.core.fusion`), on
+  the device a :class:`Topology` is given.
 """
 
+from pothoscomms_tpu_torch.core.block import Block
+from pothoscomms_tpu_torch.core.dtypes import DType
+from pothoscomms_tpu_torch.core.labels import Label
+from pothoscomms_tpu_torch.core.packet import Packet
+from pothoscomms_tpu_torch.core.registry import BlockRegistry, register_block
+from pothoscomms_tpu_torch.core.topology import Topology
+
 __version__ = "0.1.0"
+
+__all__ = ["Block", "BlockRegistry", "DType", "Label", "Packet", "Topology",
+           "register_block"]
+
+import pothoscomms_tpu_torch.blocks  # noqa: E402,F401  registers the blocks

@@ -18,21 +18,21 @@
 // Simple design: one thread block per row, the row in shared memory.
 //  * n a power of two (the FFT block's 16..4096 range included):
 //    bit-reversed load, then log2 n in-place radix-2 DIT stages with a
-//    __syncthreads() between stages.
+//    __syncthreads() between stages (fft_radix2.cuh, shared with K3).
 //  * any other n up to 4096: a direct O(n^2) DFT, each thread one output
 //    bin, indexing the n-entry twiddle table (staged in shared memory)
 //    by (j * k) mod n, accumulated incrementally without a multiply.
 // Shared memory is dynamic; the DFT path needs 16 n bytes (64 KB at
 // n = 4096), above the 48 KB default, so the launcher raises the limit.
+// Rows longer than 4096 are split into two factors by the caller
+// (parallel/fft.py), each factor's FFTs running here.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "fft_radix2.cuh"
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
+namespace {
 
 __global__ void fft_radix2_kernel(const float2* __restrict__ x,
                                   float2* __restrict__ y,
@@ -41,25 +41,8 @@ __global__ void fft_radix2_kernel(const float2* __restrict__ x,
   extern __shared__ float2 s[];
   const float2* xr = x + (int64_t)blockIdx.x * n;
   float2* yr = y + (int64_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int j = log2n ? (int)(__brev((unsigned)i) >> (32 - log2n)) : 0;
-    s[j] = xr[i];
-  }
-  __syncthreads();
-  for (int st = 0; st < log2n; ++st) {
-    const int h = 1 << st;  // half-size of this stage's butterflies
-    for (int i = threadIdx.x; i < n / 2; i += blockDim.x) {
-      const int pos = i & (h - 1);
-      const int i0 = ((i >> st) << (st + 1)) + pos;
-      // W_{2h}^{pos} = W_n^{pos * n / (2h)}
-      const float2 w = __ldg(&tw[pos << (log2n - 1 - st)]);
-      const float2 u = s[i0];
-      const float2 t = cmul(s[i0 + h], w);
-      s[i0] = make_float2(u.x + t.x, u.y + t.y);
-      s[i0 + h] = make_float2(u.x - t.x, u.y - t.y);
-    }
-    __syncthreads();
-  }
+  fftdev::load_bitrev(s, xr, 1, n, log2n);
+  fftdev::radix2_stages(s, tw, 1, n, log2n);
   for (int i = threadIdx.x; i < n; i += blockDim.x) yr[i] = s[i];
 }
 

@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of
-the checkout (the hash covers the source and the flags, so an edited
-source rebuilds). The compiler's output, including ``-Xptxas -v``'s
-register and shared-memory report, is kept beside the library as
-``lib<name>-<hash>.log``.
+the checkout (the hash covers the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header rebuilds). The
+compiler's output, including ``-Xptxas -v``'s register and shared-memory
+report, is kept beside the library as ``lib<name>-<hash>.log``.
 
 There is no fallback: without nvcc, or when nvcc fails, :func:`load`
 raises.
@@ -47,8 +47,9 @@ def find_nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` (once per source content) and load it."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if not lib.exists():
         nvcc = find_nvcc()

@@ -5,10 +5,11 @@ no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: max |kernel - plain| / max |plain| below 1e-5 for cgemm
-(float32 sums over at most a few hundred terms, in another order) and
-2e-5 for the FFT (as the JAX package's FFT test); spectra of the chain
-below 1e-5 against the same chain on the CPU; carries exact.
+Tolerances: max |kernel - plain| / max |plain| below 1e-5 for cgemm and
+the one-pass FIR+FFT (float32 sums over at most a few hundred terms, in
+another order) and 2e-5 for the FFT (as the JAX package's FFT test);
+spectra of the chains below 1e-5 against the same chain on the CPU;
+carries exact.
 """
 
 import numpy as np
@@ -17,7 +18,10 @@ import torch
 
 from pothoscomms_tpu_torch.kernels.cgemm import cgemm, cgemm_plain
 from pothoscomms_tpu_torch.kernels.fft import fft_c2c, fft_c2c_plain
+from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
+    fir_fft_fused, fir_fft_fused_plain, make_fused_chain)
 from pothoscomms_tpu_torch.parallel.chain import fir_fft_chain
+from pothoscomms_tpu_torch.parallel.fft import fft_planar
 
 torch.set_num_threads(1)
 
@@ -93,6 +97,86 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         fft_c2c(a.transpose(0, 1))
 
 
+@pytest.mark.parametrize("n", [8192, 16384])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft_planar_long_rows_on_card(dev, n, inverse):
+    """Rows above K2's 4096 take the two-factor split, both factors on
+    K2; the JAX fft_planar takes any n, and so must the port."""
+    rng = np.random.default_rng(n + inverse)
+    x = _normal(rng, 6, n, 2)
+    before = fft_c2c.launches
+    got = fft_planar(x.to(dev), n, inverse)
+    ref = fft_c2c_plain(x.to(dev), inverse)
+    torch.cuda.synchronize()
+    assert fft_c2c.launches == before + 2
+    assert _rel(got, ref) < 2e-5
+    xc = x[..., 0].double().numpy() + 1j * x[..., 1].double().numpy()
+    exp = np.fft.ifft(xc, axis=-1) * n if inverse else np.fft.fft(xc, axis=-1)
+    g = got.cpu().numpy()
+    g = g[..., 0] + 1j * g[..., 1]
+    assert np.max(np.abs(g - exp)) / np.max(np.abs(exp)) < 2e-5
+
+
+@pytest.mark.parametrize("b,n,pp,corr", [
+    (37, 1024, 64, True), (37, 1024, 64, False), (1, 1024, 64, True),
+    (4096, 1024, 64, True), (10, 16, 8, True), (6, 2, 256, True)])
+def test_fir_fft_fused_kernel_matches_plain(dev, b, n, pp, corr):
+    """K3 against its plain version, ragged B (not a multiple of the
+    kernel's four windows per block) and uw=None included."""
+    rng = np.random.default_rng(b * 7 + n + pp)
+    x = _normal(rng, b, n, 2).to(dev)
+    uw = _normal(rng, b, pp, 2).to(dev) if corr else None
+    H = _normal(rng, n, 2).to(dev)
+    gr, gi = _normal(rng, pp, n).to(dev), _normal(rng, pp, n).to(dev)
+    before = fir_fft_fused.launches
+    got = fir_fft_fused(x, uw, H, gr, gi)
+    ref = fir_fft_fused_plain(x, uw, H, gr, gi)
+    torch.cuda.synchronize()
+    assert fir_fft_fused.launches == before + 1
+    assert got.shape == (b, n, 2)
+    assert _rel(got, ref) < 1e-5
+
+
+def test_fir_fft_fused_raises_instead_of_falling_back(dev):
+    x = torch.zeros(8, 1024, 2, device=dev)
+    uw = torch.zeros(8, 64, 2, device=dev)
+    H = torch.zeros(1024, 2, device=dev)
+    g = torch.zeros(64, 1024, device=dev)
+    with pytest.raises(ValueError):          # non-contiguous x
+        fir_fft_fused(x.transpose(0, 1).contiguous().transpose(0, 1), uw,
+                      H, g, g)
+    with pytest.raises(ValueError):          # non-contiguous operator
+        fir_fft_fused(x, uw, H, g.t().contiguous().t(), g)
+    with pytest.raises(ValueError):          # n above the kernel's 1024
+        x2 = torch.zeros(2, 2048, 2, device=dev)
+        g2 = torch.zeros(64, 2048, device=dev)
+        fir_fft_fused(x2, None, torch.zeros(2048, 2, device=dev), g2, g2)
+    with pytest.raises(ValueError):          # n not a power of two
+        x3 = torch.zeros(2, 100, 2, device=dev)
+        g3 = torch.zeros(4, 100, device=dev)
+        fir_fft_fused(x3, None, torch.zeros(100, 2, device=dev), g3, g3)
+    with pytest.raises(ValueError):          # operand on another device
+        fir_fft_fused(x, uw.cpu(), H, g, g)
+
+
+def test_fused_chain_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(5)
+    C, T, K = 4, 8192, 64
+    taps = (rng.normal(size=K) + 1j * rng.normal(size=K)) / K
+    run_c = make_fused_chain(taps, 1024, device=dev)
+    run_h = make_fused_chain(taps, 1024)
+    carry_c = torch.zeros(C, K - 1, 2, device=dev)
+    carry_h = torch.zeros(C, K - 1, 2)
+    before = fir_fft_fused.launches
+    for _ in range(3):
+        x = _normal(rng, C, T, 2)
+        spec_c, carry_c = run_c.run(x.to(dev), carry_c)
+        spec_h, carry_h = run_h.run(x, carry_h)
+        assert _rel(spec_c.cpu(), spec_h) < 1e-5
+        assert torch.equal(carry_c.cpu(), carry_h)
+    assert fir_fft_fused.launches == before + 3
+
+
 @pytest.mark.parametrize("k,nb,decim,form", [
     (64, 1024, 1, "combined"), (100, 64, 1, "toeplitz"),
     (200, 1024, 1, "conv"), (64, 1024, 2, "conv")])
@@ -109,3 +193,47 @@ def test_chain_on_card_matches_cpu(dev, k, nb, decim, form):
         spec_h, carry_h = run_h(x, carry_h)
         assert _rel(spec_c.cpu(), spec_h) < 1e-5
         assert torch.equal(carry_c.cpu(), carry_h)
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+def test_block_path_topology_on_card(dev, fuse):
+    """feeder -> /comms/fir_filter -> /comms/fft -> collector on
+    Topology(device="cuda:0"): fused, the pair core runs K1 and the
+    drain streams the FFT on K2; unfused, the FIR streams on the card and
+    every window goes through K2. Matches the same topology on the CPU."""
+    from pothoscomms_tpu_torch import BlockRegistry, Topology
+    from pothoscomms_tpu_torch.core.fixtures import CollectorSink, FeederSource
+
+    rng = np.random.default_rng(9)
+    taps = (rng.normal(size=33) + 1j * rng.normal(size=33)) / 33
+    feeds = [(rng.normal(size=n) + 1j * rng.normal(size=n)).astype(
+        np.complex64) for n in (3 * 4096 + 5, 2 * 4096 + 777)]
+
+    def run(device):
+        fir = BlockRegistry.make("/comms/fir_filter", "complex_float32",
+                                 "COMPLEX")
+        fir.set_taps(taps)
+        fft = BlockRegistry.make("/comms/fft", "complex_float32", 256, False)
+        feed = FeederSource("complex_float32")
+        sink = CollectorSink("complex_float32")
+        topo = Topology(device=device)
+        topo.auto_fuse = fuse
+        topo.fuse_threshold = 4096
+        for a, b in ((feed, fir), (fir, fft), (fft, sink)):
+            topo.connect(a, 0, b, 0)
+        for x in feeds:
+            feed.feed_buffer(x)
+        topo.commit()
+        assert topo.wait_inactive()
+        return sink.get_buffer(), topo
+
+    before = (cgemm.launches, fft_c2c.launches)
+    got, topo = run(dev)
+    torch.cuda.synchronize()
+    k1, k2 = cgemm.launches - before[0], fft_c2c.launches - before[1]
+    ref, _ = run("cpu")
+    if fuse:
+        assert topo._segments[0].pair_engaged and k1 >= 1
+    assert k2 >= 1
+    assert got.shape == ref.shape and got.dtype == np.complex64
+    assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) < 1e-5
