@@ -1,0 +1,173 @@
+#!/usr/bin/env python3
+"""Where a step of the FM receive chain spends its time on one CUDA card.
+
+    python3 benches_torch/probe_fm_step.py [--tag NAME] [--out DIR]
+
+(``--out`` defaults to the git-ignored ``build/probes``.)
+
+Needs one CUDA card; run from the root of a checkout. The chain is
+``compile_chain([freq_demod, dc_removal(64, 2), envelope(10, 40)], 256)``
+(BASELINE config #4, as chip_smoke.py phase 14 drives it) at T = 131072
+(blocked envelope) and T = 16384 (unblocked). For each T it times, with
+CUDA events (3 repetitions, each the median of 10 calls after a quarter
+second of warm-up):
+
+- one chain step;
+- the same step with the DC removal's prefix sums in float32, the JAX
+  package's formulation, in turns with the float64 one (float64,
+  float32, float32, float64): what the port's accuracy repair costs;
+- each block's core alone on the input the chain gives it.
+
+Then it traces three steps with ``torch.profiler`` (device time per
+kernel name, and the kernels' share of the traced wall time: the
+device's busy share, kernels assumed not to overlap) and reads the peak
+device memory of one step. It prints a summary and writes everything to
+``<out>/probe_fm_step_<tag>.json``.
+"""
+
+import argparse
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tag", default="probe")
+    ap.add_argument("--out", default="build/probes")
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("probe_fm_step: no CUDA card", file=sys.stderr)
+        return 1
+    from pothoscomms_tpu_torch import BlockRegistry
+    from pothoscomms_tpu_torch.ops import filter as fops
+    from pothoscomms_tpu_torch.parallel.compiler import compile_chain
+
+    dev = torch.device("cuda:0")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+    def timed(fn, reps=3, calls=10):
+        """[median ms of ``calls`` calls] x ``reps``, after warm-up."""
+        t_end = time.perf_counter() + 0.25
+        while time.perf_counter() < t_end:
+            fn()
+            torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            times = []
+            for _ in range(calls):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            out.append(statistics.median(times))
+        return out
+
+    def window_sum_f32(ext, depth, dim):
+        """The JAX package's rolling sums: float32 prefix sums."""
+        csum = torch.cumsum(ext, dim=dim)
+        n = ext.shape[dim] - depth
+        return csum.narrow(dim, depth, n) - csum.narrow(dim, 0, n)
+
+    @contextlib.contextmanager
+    def f32_prefix_sums():
+        saved = fops.window_sum
+        fops.window_sum = window_sum_f32
+        try:
+            yield
+        finally:
+            fops.window_sum = saved
+
+    def fm_blocks():
+        demod = BlockRegistry.make("/comms/freq_demod", "complex_float32")
+        dcr = BlockRegistry.make("/comms/dc_removal", "float32")
+        dcr.set_average_size(64)
+        dcr.set_cascade_size(2)
+        env = BlockRegistry.make("/comms/envelope_detector", "float32")
+        env.set_attack(10.0)
+        env.set_release(40.0)
+        return [demod, dcr, env]
+
+    C = 256
+    res = {"card": card, "torch": torch.__version__,
+           "cuda": torch.version.cuda, "channels": C, "by_T": {}}
+    g = torch.Generator(device=dev).manual_seed(0)
+    for T in (131072, 16384):
+        inc = torch.rand((C, T), generator=g, device=dev,
+                         dtype=torch.float64) - 0.25
+        phase = torch.cumsum(inc, dim=1)
+        x = torch.stack([torch.cos(phase), torch.sin(phase)], -1).float()
+        del inc, phase
+        blocks = fm_blocks()
+        step, carry = compile_chain(blocks, C, device=dev)
+        cores = [b.device_core(C, device=dev) for b in blocks]
+        r = {}
+        r["step_ms"] = timed(lambda: step(x, carry))
+        ab = {"float64": [], "float32": []}
+        for which in ("float64", "float32", "float32", "float64"):
+            ctx = f32_prefix_sums() if which == "float32" \
+                else contextlib.nullcontext()
+            with ctx:
+                ab[which] += timed(lambda: step(x, carry), reps=1)
+        r["prefix_sums_ab_ms"] = ab
+        xin = x
+        r["cores_ms"] = {}
+        for blk, (c0, core) in zip(blocks, cores):
+            r["cores_ms"][type(blk).__name__] = timed(
+                lambda: core(c0, xin), reps=1)
+            _, xin = core(c0, xin)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            c = carry
+            for _ in range(3):
+                _, c = step(x, c)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev_us = {e.key: e.device_time_total for e in prof.key_averages()
+                  if e.device_time_total > 0}
+        total = sum(dev_us.values())
+        r["trace_3_steps"] = {
+            k: {"us": v, "share": v / total}
+            for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])}
+        r["trace_wall_us"] = wall_us
+        r["device_busy_share"] = total / wall_us
+        torch.cuda.reset_peak_memory_stats()
+        step(x, carry)
+        torch.cuda.synchronize()
+        r["peak_bytes_one_step"] = torch.cuda.max_memory_allocated()
+        res["by_T"][T] = r
+        del x, xin, carry, c, cores
+
+    print(card)
+    for T, r in res["by_T"].items():
+        print(f"T={T} step_ms {r['step_ms']}, prefix sums A/B "
+              f"{r['prefix_sums_ab_ms']}, cores {r['cores_ms']}, device "
+              f"busy {r['device_busy_share']:.3f} of {r['trace_wall_us']:.0f}"
+              f" us, peak {r['peak_bytes_one_step']} B")
+        for k, v in list(r["trace_3_steps"].items())[:8]:
+            print(f"  trace {v['share']:.4f} {v['us']:.0f} us  {k[:90]}")
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"probe_fm_step_{args.tag}.json").write_text(
+        json.dumps(res, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

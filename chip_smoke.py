@@ -28,23 +28,52 @@ Phases, one or more lines each:
      fused pair runs K1 per quantum, the drain streams through K2. The
      float64 oracle on windows at the start, at a row and at quantum
      boundaries and at the end, the output length, and the wall time
-     from commit() to wait_inactive() with where it went.
+     from commit() to wait_inactive() with where it went;
+ 11. path "stream_ceiling": benches_torch/probe_stream_ceiling.py's run()
+     (P1, stream_scale, at [32768, 1024] for tb 128, 256, 512; its ms and
+     GB/s, the plain version's and copy_'s), then P1 equal to its plain
+     version bit for bit at each tb;
+ 12. path "layout": benches_torch/probe_layout.py's run() (P2,
+     layout_move A-D at [4096, 1024]; ms and GB/s per mode beside P1's),
+     then each mode equal to its plain version and to the probe's numpy
+     oracle on a host copy, bit for bit;
+ 13. E1 (envelope_rows) against its plain version at [256, 131072]
+     blocked (L = Wr = 8192, attack 10, release 40), [256, 16384]
+     unblocked and [1, 2^24] blocked, rtol 1e-5 / atol 1e-6; both timed at
+     the first shape;
+ 14. path "fm_chain": compile_chain([freq_demod, dc_removal(64, 2),
+     envelope(10, 40)], 256) at T = 131072 (blocked envelope) for three
+     chained steps, then two at T = 16384 (unblocked): a phase random walk
+     with a carrier offset; channels 0 and 255 of step 2 against a
+     float64 numpy oracle seeded with step 1's tail (atol 2e-3), every
+     step against the same chain on E1's plain version, two half-steps
+     against one step, and the step's time;
+ 15. path "fm_block_api": feeder -> /comms/freq_demod ->
+     /comms/dc_removal (32, 2) -> /comms/envelope_detector (4, 16) ->
+     collector on Topology(device="cuda:0"), fed 2^26 + 17 samples (a
+     phase random walk with a carrier offset): the segment engages and
+     launches E1, the output length is exact, windows
+     at the start, across pull boundaries and at the end match a float64
+     oracle run from W + 2 D + 1 samples earlier (atol 2e-3), and the wall
+     time from commit() to wait_inactive() with where it went.
 Then a JSON line of per-kernel results and, last, {"ok": true, "device":
 {...}}. A failed check exits non-zero without that last line, and so does
 a run without CUDA.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. A kernel's ``launches`` in the JSON line is the sum over
-the three paths, ``launches_by_path`` gives each; the conv branch's are
+the paths, ``launches_by_path`` gives each; the conv branch's are
 reported apart, as ``conv_branch_launches``.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -65,12 +94,17 @@ def main() -> int:
 
     from pothoscomms_tpu_torch.kernels import build
     from pothoscomms_tpu_torch.kernels.cgemm import cgemm, cgemm_plain
+    from pothoscomms_tpu_torch.kernels.envelope import (envelope_rows,
+                                                        envelope_rows_plain)
+    from pothoscomms_tpu_torch.kernels.layout_move import (
+        MODES, layout_move, layout_move_plain)
+    from pothoscomms_tpu_torch.kernels.stream_scale import (
+        stream_scale, stream_scale_plain)
     from pothoscomms_tpu_torch.kernels.fft import fft_c2c, fft_c2c_plain
     from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
         fir_fft_fused, fir_fft_fused_plain, make_fused_chain)
     from pothoscomms_tpu_torch.parallel.chain import (
-        combined_operand, fir_fft_chain, fir_fft_combined_step,
-        fir_multichannel)
+        combined_operand, fir_fft_chain, fir_multichannel)
     from pothoscomms_tpu_torch.parallel.fft import fft_planar
 
     dev = torch.device("cuda:0")
@@ -87,9 +121,10 @@ def main() -> int:
         d = (got - ref).abs().max().item()
         return d, d / ref.abs().max().item()
 
-    def median_ms(fn, reps=5):
+    def median_ms(fn, reps=5, warmup_s=0.25):
         # warm up for a quarter second, so the clocks have left idle
-        t_end = time.perf_counter() + 0.25
+        fn()
+        t_end = time.perf_counter() + warmup_s
         while time.perf_counter() < t_end:
             fn()
             torch.cuda.synchronize()
@@ -123,7 +158,8 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("cgemm", "fft", "fir_fft_fused")
+    sources = ("cgemm", "fft", "fir_fft_fused", "stream_scale",
+               "layout_move", "envelope")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load, sources))
     print(f"[2] built {', '.join(s + '.cu' for s in sources)} with "
@@ -201,7 +237,8 @@ def main() -> int:
     torch.cuda.synchronize()
 
     wrappers = {"cgemm": cgemm, "fft_c2c": fft_c2c,
-                "fir_fft_fused": fir_fft_fused}
+                "fir_fft_fused": fir_fft_fused, "stream_scale": stream_scale,
+                "layout_move": layout_move, "envelope": envelope_rows}
 
     def zero_counts():
         for w in wrappers.values():
@@ -456,7 +493,6 @@ def main() -> int:
     del out_b
     out_b2, _, secs_b2 = block_api_run()
     check(out_b2.shape == (n_frames * NB,), "second block path run length")
-    del out_b2
     for label, sb in (("first (cold)", secs_b), ("second", secs_b2)):
         rest = sb["wall"] - sb["engage"] - sb["fused"] - sb["collect"] \
             - sb["drain"]
@@ -467,25 +503,366 @@ def main() -> int:
               f"{sb['collect']:.3f} s, drain {sb['drain']:.3f} s, rest "
               f"{rest:.3f} s")
 
+    del out_b2
+
+    # -- 11. path "stream_ceiling": the P1 probe's entry point ------------
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benches_torch"))
+    import probe_layout
+    import probe_stream_ceiling
+
+    zero_counts()
+    p1 = probe_stream_ceiling.run()
+    launches_p1 = read_counts()
+    print(f"[11] probe_stream_ceiling on {p1['card']}: launches "
+          f"{launches_p1}")
+    print(f"[11] {json.dumps(p1)}")
+    check(launches_p1["stream_scale"] >= 3,
+          "the P1 probe did not launch stream_scale")
+    xr11, xi11 = on_card(normal(32768, 1024)), on_card(normal(32768, 1024))
+    pr, pi = stream_scale_plain(xr11, xi11)
+    for tb in probe_stream_ceiling.TILES:
+        yr, yi = stream_scale(xr11, xi11, tb)
+        torch.cuda.synchronize()
+        same = torch.equal(yr, pr) and torch.equal(yi, pi)
+        print(f"[11] stream_scale [32768,1024] tb={tb}: equal to its plain "
+              f"version {same}; {p1[f'tb{tb}_ms']:.4f} ms, "
+              f"{p1[f'tb{tb}_GBs']:.1f} GB/s (plain {p1['plain_GBs']:.1f}, "
+              f"copy_ {p1['copy_GBs']:.1f})")
+        check(same, f"stream_scale tb={tb} differs from its plain version")
+    p1_abs = 0.0
+    del xr11, xi11, pr, pi, yr, yi
+
+    # -- 12. path "layout": the P2 probe's entry point --------------------
+    zero_counts()
+    p2 = probe_layout.run()
+    launches_p2 = read_counts()
+    print(f"[12] probe_layout on {p2['card']}: launches {launches_p2}")
+    print(f"[12] {json.dumps(p2)}")
+    check(launches_p2["layout_move"] >= 4 * 3,
+          "the P2 probe did not launch layout_move for every mode")
+    x12 = on_card(normal(4096, 1024))
+    x12_host = x12.cpu().numpy()
+    oracles = {  # benches/probe_mosaic.py:56, 62, 69-70, 76
+        "A": lambda x: np.swapaxes(x.reshape(-1, 8, 128), 1, 2)
+        .reshape(-1, 1024),
+        "B": lambda x: np.swapaxes(x.reshape(-1, 128, 8), 1, 2)
+        .reshape(-1, 1024),
+        "C": lambda x: np.transpose(x.reshape(-1, 8, 16, 8), (0, 3, 2, 1))
+        .reshape(-1, 1024),
+        "D": lambda x: np.concatenate([x[:, m::8] for m in range(8)], axis=1)}
+    for mode in MODES:
+        got = layout_move(x12, mode)
+        ref = layout_move_plain(x12, mode)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref)
+        same_np = np.array_equal(got.cpu().numpy(), oracles[mode](x12_host))
+        print(f"[12] layout_move {mode} [4096,1024]: equal to its plain "
+              f"version {same}, to the probe's numpy oracle {same_np}; "
+              f"{p2[f'{mode}_ms']:.4f} ms, {p2[f'{mode}_GBs']:.1f} GB/s "
+              f"(plain {p2[f'{mode}_plain_ms']:.4f} ms; P1 at this size, "
+              f"tb={p2['P1_tb']}, {p2['P1_GBs']:.1f} GB/s, copy_ "
+              f"{p2['copy_GBs']:.1f})")
+        check(same and same_np and p2[f"{mode}_ok"],
+              f"layout_move {mode} differs from its plain version")
+    p2_abs = 0.0
+    del x12, got, ref
+
+    # -- 13. E1 against its plain version ---------------------------------
+    from pothoscomms_tpu_torch.ops import filter as fops
+
+    ga, gr = np.float32(np.exp(-1 / 10.0)), np.float32(np.exp(-1 / 40.0))
+    wr = -(-fops.envelope_warmup(10.0, 40.0) // 8192) * 8192
+    e1_abs, e1_times = 0.0, {}
+    e1_cases = (("[256,131072] blocked", 256, 131072, 8192, wr),
+                ("[256,16384] unblocked", 256, 16384, 16384, 0),
+                ("[1,2^24] blocked", 1, 1 << 24, 8192, wr))
+    for label, p13, t13, l13, w13 in e1_cases:
+        mag = torch.from_numpy(np.abs(normal(p13, t13))).to(dev)
+        env0 = torch.from_numpy(np.abs(normal(p13))).to(dev)
+        y, ef = envelope_rows(mag, env0, ga, gr, l13, w13)
+        yp, efp = envelope_rows_plain(mag, env0, ga, gr, l13, w13)
+        torch.cuda.synchronize()
+        d = max((y - yp).abs().max().item(), (ef - efp).abs().max().item())
+        ok = bool(torch.allclose(y, yp, rtol=1e-5, atol=1e-6)
+                  and torch.allclose(ef, efp, rtol=1e-5, atol=1e-6))
+        e1_abs = max(e1_abs, d)
+        print(f"[13] envelope_rows {label} (L={l13}, Wr={w13}): max|d| "
+              f"{d:.3e} (rtol 1e-5, atol 1e-6): {ok}")
+        check(ok, f"envelope_rows {label} disagrees with its plain version")
+        e1_times[label] = median_ms(lambda: envelope_rows(mag, env0, ga, gr,
+                                                          l13, w13))
+        if t13 == 131072:
+            e1_plain_ms = median_ms(lambda: envelope_rows_plain(
+                mag, env0, ga, gr, l13, w13), reps=2, warmup_s=0.0)
+    e1_ms = e1_times[e1_cases[0][0]]
+    times = ", ".join(f"{k} {v:.3f} ms" for k, v in e1_times.items())
+    print(f"[13] on {card}: envelope_rows {times}; at [256,131072] blocked "
+          f"against plain (a Python loop of {wr + 8192} steps) "
+          f"{e1_plain_ms:.3f} ms")
+    del mag, env0, y, yp
+
+    # -- 14. path "fm_chain": compile_chain on the card -------------------
+    from pothoscomms_tpu_torch.parallel.compiler import compile_chain
+
+    CF, TF, DF, CASC, ATT, REL = 256, 131072, 64, 2, 10.0, 40.0
+    TS = 16384  # the shape of benches/bench_suite.py's fm_chain_256ch
+
+    def fm_blocks(d, casc, attack, release):
+        demod = BlockRegistry.make("/comms/freq_demod", "complex_float32")
+        dcr = BlockRegistry.make("/comms/dc_removal", "float32")
+        dcr.set_average_size(d)
+        dcr.set_cascade_size(casc)
+        env = BlockRegistry.make("/comms/envelope_detector", "float32")
+        env.set_attack(attack)
+        env.set_release(release)
+        return [demod, dcr, env]
+
+    @contextlib.contextmanager
+    def plain_envelope():
+        """The chain's cores with E1's plain version in place of E1."""
+        saved = fops.envelope_rows
+        fops.envelope_rows = envelope_rows_plain
+        try:
+            yield
+        finally:
+            fops.envelope_rows = saved
+
+    def fm_steps(c, t, n, seed):
+        """n steps of a phase random walk with a carrier offset (0.25 rad
+        per sample), made on the card in float64: [n][c, t, 2] f32."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        inc = torch.rand((c, n * t), generator=g, device=dev,
+                         dtype=torch.float64) - 0.5 + 0.25
+        phase = torch.cumsum(inc, dim=1)
+        x = torch.stack([torch.cos(phase), torch.sin(phase)], -1).float()
+        return [x[:, s * t:(s + 1) * t].contiguous() for s in range(n)]
+
+    def fm_oracle(xc, d, casc, attack, release):
+        """Float64 FM chain on one channel from a zero state (the oracle
+        of tests/test_tpu_lane.py:222-243)."""
+        prev = np.concatenate([[0], xc[:-1]])
+        cur = np.angle(xc * np.conj(prev))
+        delayed = np.concatenate([np.zeros(d), cur])[1:1 + len(xc)]
+        for _ in range(casc):
+            cs = np.cumsum(np.concatenate([np.zeros(d), cur]))
+            cur = (cs[d:] - cs[:-d]) / d
+        mag = np.abs(delayed - cur).tolist()
+        ga64, gr64 = np.exp(-1.0 / attack), np.exp(-1.0 / release)
+        e, out = 0.0, []
+        for v in mag:
+            g = ga64 if v > e else gr64
+            e = g * e + (1.0 - g) * v
+            out.append(e)
+        return np.array(out)
+
+    step_fm, carry_fm = compile_chain(fm_blocks(DF, CASC, ATT, REL), CF,
+                                      device=dev)
+    xf = fm_steps(CF, TF, 3, 14)
+    xs16 = fm_steps(CF, TS, 2, 15)
+    step16, carry16 = compile_chain(fm_blocks(DF, CASC, ATT, REL), CF,
+                                    device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    carries_fm, ys_fm = [carry_fm], []
+    for x in xf:
+        y, c = step_fm(x, carries_fm[-1])
+        ys_fm.append(y)
+        carries_fm.append(c)
+    carries16, ys16 = [carry16], []
+    for x in xs16:
+        y, c = step16(x, carries16[-1])
+        ys16.append(y)
+        carries16.append(c)
+    launches_fm = read_counts()
+    print(f"[14] fm_chain C={CF} T={TF} (3 steps) and T={TS} (2 steps), "
+          f"D={DF} x{CASC}, attack {ATT} release {REL}: launches "
+          f"{launches_fm}")
+    check(launches_fm["envelope"] >= 5,
+          "the FM chain did not launch envelope_rows each step")
+    fm_err = 0.0
+    for label, xs_, ys_, cs_, stp in (
+            (f"T={TF}", xf, ys_fm, carries_fm, step_fm),
+            (f"T={TS}", xs16, ys16, carries16, step16)):
+        for s, x in enumerate(xs_):
+            check(ys_[s].shape == x.shape[:2]
+                  and bool(torch.isfinite(ys_[s]).all()),
+                  f"fm_chain {label} step {s}: shape or non-finite values")
+            with plain_envelope():
+                yp, cp = stp(x, cs_[s])
+            d = (ys_[s] - yp).abs().max().item()
+            dc_ = max((a - b).abs().max().item()
+                      for a, b in zip(cs_[s + 1], cp))
+            ok = bool(torch.allclose(ys_[s], yp, rtol=1e-5, atol=1e-6))
+            print(f"[14] {label} step {s} vs the chain on E1's plain "
+                  f"version: max|d| {d:.3e}, carries {dc_:.3e} (rtol 1e-5, "
+                  f"atol 1e-6): {ok}")
+            check(ok and dc_ <= 1e-5, f"fm_chain {label} step {s} disagrees "
+                                      f"with the plain chain")
+    lead = 4096
+    for ch in (0, CF - 1):
+        seq = torch.cat([xf[1][ch, TF - lead:], xf[2][ch]]).double().cpu()
+        seq = seq[:, 0].numpy() + 1j * seq[:, 1].numpy()
+        exp = fm_oracle(seq, DF, CASC, ATT, REL)[lead:]
+        d = np.max(np.abs(ys_fm[2][ch].cpu().numpy() - exp))
+        fm_err = max(fm_err, d)
+        print(f"[14] T={TF} step 2 channel {ch} vs float64 numpy oracle "
+              f"(seeded with step 1's last {lead} samples): max|d| {d:.3e} "
+              f"(atol 2e-3)")
+        check(d <= 2e-3, f"fm_chain channel {ch} disagrees with the oracle")
+    half = TF // 2
+    c = carries_fm[1]
+    parts = []
+    for h in range(2):
+        yh, c = step_fm(xf[1][:, h * half:(h + 1) * half].contiguous(), c)
+        parts.append(yh)
+    d = (torch.cat(parts, dim=1) - ys_fm[1]).abs().max().item()
+    dc_ = max((a - b).abs().max().item() for a, b in zip(c, carries_fm[2]))
+    print(f"[14] two half-steps of {half} vs one step: max|d| {d:.3e}, "
+          f"carries {dc_:.3e} (atol 2e-3)")
+    check(d <= 2e-3 and dc_ <= 2e-3, "two half-steps differ from one step")
+    fm_ms = median_ms(lambda: step_fm(xf[0], carry_fm))
+    fm16_ms = median_ms(lambda: step16(xs16[0], carry16))
+    fm_bytes = CF * TF * (8 + 4)
+    p1_best = max(p1[f"tb{tb}_GBs"] for tb in probe_stream_ceiling.TILES)
+    print(f"[14] on {card}: fm_chain step T={TF} {fm_ms:.3f} ms "
+          f"({CF * TF / fm_ms / 1e3:.1f} Msamples/s, "
+          f"{fm_bytes / fm_ms / 1e6:.1f} GB/s of input and output against "
+          f"P1's best {p1_best:.1f}); T={TS} {fm16_ms:.3f} ms "
+          f"({CF * TS / fm16_ms / 1e3:.1f} Msamples/s)")
+    del xf, xs16, ys_fm, ys16, carries_fm, carries16, parts
+
+    # -- 15. path "fm_block_api": the FM blocks on Topology(device) -------
+    DB, CASCB, ATTB, RELB = 32, 2, 4.0, 16.0
+    WB = fops.envelope_warmup(ATTB, RELB)
+    n_fm = 2 * QB + 17
+    rng15 = np.random.default_rng(15)
+    # a phase random walk with a carrier offset of 0.25 rad per sample:
+    # the DC removal's prefix sums over a 2^24 pull grow to ~4e6
+    xb15 = np.exp(1j * np.cumsum(rng15.normal(size=n_fm) * 0.2 + 0.25)
+                  ).astype(np.complex64)
+
+    def fm_block_run():
+        blocks = fm_blocks(DB, CASCB, ATTB, RELB)
+        feed = FeederSource("complex_float32")
+        sink = CollectorSink("float32")
+        topo = Topology(device=dev)
+        chain = [feed] + blocks + [sink]
+        for a, b in zip(chain[:-1], chain[1:]):
+            topo.connect(a, 0, b, 0)
+        # edges sized as in phase 10
+        blocks[0].input(0).set_capacity(4 * QB)
+        sink.input(0).set_capacity(2 * QB)
+        for part in (xb15[:QB], xb15[QB:2 * QB], xb15[2 * QB:]):
+            feed.feed_buffer(part)
+        secs = {"engage": 0.0, "pull": 0.0, "fused": 0.0}
+
+        def timed(fn, key):
+            def call(*args):
+                t = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                secs[key] += time.perf_counter() - t
+                return out
+            return call
+
+        t0 = time.perf_counter()
+        topo.commit()
+        seg = topo._segments[0]
+        seg.try_engage = timed(seg.try_engage, "engage")
+        seg._pull = timed(seg._pull, "pull")
+        seg.work = timed(seg.work, "fused")
+        check(topo.wait_inactive(timeout=300.0), "FM block path did not "
+                                                 "finish")
+        secs["wall"] = time.perf_counter() - t0
+        secs["collect"] = sink._work_time
+        secs["drain"] = sum(b._work_time for b in blocks) - secs["fused"]
+        secs["step"] = secs["fused"] - secs["pull"]
+        return sink.get_buffer(), seg, secs
+
+    zero_counts()
+    out15, seg15, secs15 = fm_block_run()
+    launches15 = read_counts()
+    print(f"[15] block API freq_demod -> dc_removal({DB}, {CASCB}) -> "
+          f"envelope({ATTB}, {RELB}) on {dev}, {n_fm} samples: launches "
+          f"{launches15}; segment of {len(seg15.blocks)} blocks engaged "
+          f"{seg15.engage_count}x, {seg15.fused_elements} samples fused")
+    check(seg15.engage_count >= 1 and len(seg15.blocks) == 3
+          and seg15.fused_elements >= QB, "the FM segment did not engage")
+    check(launches15["envelope"] >= 2, "the FM block path did not launch "
+                                       "envelope_rows")
+    check(out15.shape == (n_fm,) and out15.dtype == np.float32,
+          f"FM block path output {out15.shape} {out15.dtype}, expected "
+          f"({n_fm},) float32")
+    check(bool(np.isfinite(out15).all()), "FM block path output not finite")
+    pull = 1 << (2 * ((QB.bit_length() - 1) // 2))  # top of the 4^k ladder
+    n_pulls = 2 * QB // pull
+    check(seg15.fused_elements == n_pulls * pull,
+          f"{seg15.fused_elements} samples fused, expected {n_pulls} pulls "
+          f"of {pull}")
+    lead15 = WB + 2 * DB + 1
+    win = 256
+    fm_block_err = 0.0
+    for what, s0 in (("start", 0), ("pull boundary", pull - win // 2),
+                     ("feed boundary", QB - win // 2),
+                     ("last pull boundary", (n_pulls - 1) * pull - win // 2),
+                     ("drain", n_pulls * pull - win // 2),
+                     ("end", n_fm - win)):
+        a = max(0, s0 - lead15)
+        exp = fm_oracle(xb15[a:s0 + win].astype(np.complex128), DB, CASCB,
+                        ATTB, RELB)[s0 - a:]
+        d = np.max(np.abs(out15[s0:s0 + win] - exp))
+        fm_block_err = max(fm_block_err, d)
+        print(f"[15] window [{s0}, {s0 + win}) ({what}) vs float64 numpy "
+              f"oracle from {s0 - a} samples earlier: max|d| {d:.3e} "
+              f"(atol 2e-3)")
+        check(d <= 2e-3, f"FM block path window at {s0} disagrees with the "
+                         f"oracle")
+    del out15
+    out15b, _, secs15b = fm_block_run()
+    check(out15b.shape == (n_fm,), "second FM block path run length")
+    del out15b
+    for label, sb in (("first (cold)", secs15), ("second", secs15b)):
+        rest = sb["wall"] - sb["engage"] - sb["fused"] - sb["collect"] \
+            - sb["drain"]
+        print(f"[15] on {card}: {label} run {sb['wall']:.3f} s from commit() "
+              f"to wait_inactive(), {n_fm / sb['wall'] / 1e6:.1f} "
+              f"Msamples/s; engage {sb['engage']:.3f} s, pulls (H2D) "
+              f"{sb['pull']:.3f} s, fused steps {sb['step']:.3f} s, collect "
+              f"{sb['collect']:.3f} s, drain {sb['drain']:.3f} s, rest "
+              f"{rest:.3f} s")
+
     by_path = {"chain": launches, "one_pass": launches3,
-               "block_api": launches_b}
+               "block_api": launches_b, "stream_ceiling": launches_p1,
+               "layout": launches_p2, "fm_chain": launches_fm,
+               "fm_block_api": launches15}
+    par = "pothoscomms_tpu/parallel/pallas_kernels.py"
     measured = {
-        "cgemm": ("cgemm.cu", "pallas_kernels.py:58", k1_abs, k1_ms,
-                  k1_plain_ms),
-        "fft_c2c": ("fft.cu", "pallas_kernels.py:156", k2_abs, k2_ms,
-                    k2_plain_ms),
-        "fir_fft_fused": ("fir_fft_fused.cu", "pallas_kernels.py:325",
-                          k3_abs, k3_ms, k3_plain_ms)}
+        "cgemm": ("cgemm.cu", f"{par}:58", k1_abs, k1_ms, k1_plain_ms),
+        "fft_c2c": ("fft.cu", f"{par}:156", k2_abs, k2_ms, k2_plain_ms),
+        "fir_fft_fused": ("fir_fft_fused.cu", f"{par}:325", k3_abs, k3_ms,
+                          k3_plain_ms),
+        "stream_scale": ("stream_scale.cu", "benches/probe_pallas_ceiling"
+                         ".py:23", p1_abs, p1["tb256_ms"], p1["plain_ms"]),
+        "layout_move": ("layout_move.cu", "benches/probe_mosaic.py:24",
+                        p2_abs, p2["A_ms"], p2["A_plain_ms"]),
+        "envelope": ("envelope.cu", "pothoscomms_tpu/ops/filter.py:403 "
+                     "(an XLA scan, not a Pallas kernel)", e1_abs, e1_ms,
+                     e1_plain_ms)}
     kernels = []
     for name, (src, where, err, ms, plain_ms) in measured.items():
         paths = {p: c[name] for p, c in by_path.items()}
+        check(sum(paths.values()) > 0, f"{name} was launched on no path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"pothoscomms_tpu_torch/csrc/{src}",
-            "replaces": f"pothoscomms_tpu/parallel/{where}",
+            "replaces": where,
             "launches": sum(paths.values()), "launches_by_path": paths,
             "conv_branch_launches": conv_launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    kernels[4]["ms_by_mode"] = {m: p2[f"{m}_ms"] for m in MODES}
+    kernels[4]["plain_ms_by_mode"] = {m: p2[f"{m}_plain_ms"] for m in MODES}
+    print(f"[16] FM oracle errors: fm_chain {fm_err:.3e}, fm_block_api "
+          f"{fm_block_err:.3e}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,12 +104,14 @@ class FFTBlock(Block):
         port.consume(k * nb)
         self.output(0).post(out)
 
-    def device_core(self, channels: int):
+    def device_core(self, channels: int, device=None):
         """Fused-chain core (terminal stage): input [C, T, 2] planar with T
         a multiple of numBins; output [C, T/numBins, numBins, 2] spectra.
         complex_float32 runs ``fft_planar`` on the input's device (K2 on
         CUDA); complex_int16 takes the streaming path's host computation,
-        so fused and streaming give bit-identical integers."""
+        so fused and streaming give bit-identical integers. The core is
+        stateless and runs where its input lies, so ``device`` is not
+        used."""
         nb, inverse = self.num_bins, self.inverse
         fixed = self.dtype.is_integer
 

@@ -1,5 +1,6 @@
 """Filter blocks (reference: filter/ module, SURVEY.md §2.3); the port of
-the JAX package's ``blocks/filter.py``. So far: /comms/fir_filter.
+the JAX package's ``blocks/filter.py``. So far: /comms/fir_filter,
+/comms/dc_removal and /comms/envelope_detector.
 
 Where the FIR runs: a complex_float32 stream streams on the topology's
 device (planar float32, as the JAX package does on its chip); every
@@ -259,9 +260,10 @@ class FIRFilter(Block):
                 new.data = lb.data * self._L / self._M
             out.post_label(new)
 
-    def device_core(self, channels: int):
+    def device_core(self, channels: int, device=None):
         """Fused-chain core: block-Toeplitz matmul FIR over [C, T(, 2)]
-        planar float32 on the block's device (the K1 kernel on CUDA);
+        planar float32 on ``device`` (default: the block's; the K1 kernel
+        on CUDA);
         carry = K-1 history samples per channel. Rational rates wait for
         the blocked rational operator (module docstring)."""
         from pothoscomms_tpu_torch.parallel.chain import (
@@ -272,7 +274,7 @@ class FIRFilter(Block):
                 "fused rational FIR: rational_fir_mm is not ported yet")
         if len(self._taps) > 128:
             raise TypeError("fused FIR core requires <= 128 taps")
-        dev = self.device
+        dev = self.device if device is None else torch.device(device)
         t0, t1 = (t.to(dev) for t in fir_toeplitz_matrices(self._taps))
         k1 = len(self._taps) - 1
 
@@ -366,3 +368,268 @@ class FIRFilter(Block):
         else:
             arr = h.astype(self.dtype.np)
         self.input(0).push_front_buffer(arr)
+
+
+# ---------------------------------------------------------------------- #
+# /comms/dc_removal (reference: filter/DCRemoval.cpp + MovingAverage.hpp)
+# ---------------------------------------------------------------------- #
+@register_block("/comms/dc_removal")
+class DCRemoval(Block):
+    DOC = {
+        "category": "/Filter",
+        "keywords": ["dc", "removal", "average", "offset"],
+        "params": {
+            "average_size": {"label": "Average Size", "default": 1024,
+                             "units": "samples",
+                             "widget": "SpinBox(minimum=1)"},
+            "cascade_size": {"label": "Cascade Size", "default": 1,
+                             "widget": "SpinBox(minimum=1)"},
+        },
+    }
+
+    def __init__(self, dtype="complex_float32"):
+        super().__init__()
+        self.dtype = DType.parse(dtype)
+        if self.dtype.kind == "uint":
+            raise ValueError("unsupported dtype")
+        self.setup_input(0, self.dtype)
+        self.setup_output(0, self.dtype)
+        qname = Q_ACCUMULATOR[self.dtype.scalar.name]
+        self._acc_np = DType.parse(qname).np
+        self._average_size = 512
+        self._cascade_size = 2
+        self._reset()
+
+    def set_average_size(self, num: int):
+        if num == 0:
+            raise ValueError("average size cannot be zero")
+        self._average_size = int(num)
+        self._reset()
+
+    def get_average_size(self) -> int:
+        return self._average_size
+
+    def set_cascade_size(self, num: int):
+        if num == 0:
+            raise ValueError("cascade size cannot be zero")
+        self._cascade_size = int(num)
+        self._reset()
+
+    def get_cascade_size(self) -> int:
+        return self._cascade_size
+
+    def _reset(self):
+        self._bump_fuse_epoch()
+        d, c = self._average_size, self._cascade_size
+        shape = (c, d, 2) if self.dtype.is_complex_int else (c, d)
+        base = self._acc_np if not (self.dtype.is_complex
+                                    and self.dtype.is_float) \
+            else self.dtype.np
+        self._hists = np.zeros(shape, base)
+
+    def activate(self):
+        self._reset()
+
+    def work(self):
+        port = self.input(0)
+        n = port.elements()
+        if n == 0:
+            return
+        buf = np.asarray(port.buffer(n))
+        is_int = self.dtype.is_integer
+        x = buf.astype(self._acc_np) if is_int else buf
+        # float32 streams compute on the topology's device, the rest on
+        # the host
+        dev = (self.device if self.dtype.is_float and self.dtype.bits == 32
+               else torch.device("cpu"))
+        y, hists = fops.dc_removal(
+            torch.from_numpy(np.ascontiguousarray(x)).to(dev),
+            torch.from_numpy(self._hists).to(dev),
+            self._average_size, self._cascade_size, is_int)
+        self._hists = hists.cpu().numpy()
+        y = y.cpu().numpy()
+        out = y.astype(self.dtype.scalar.np if self.dtype.is_complex_int
+                       else self.dtype.np)
+        port.consume(n)
+        self.output(0).post(out)
+
+    def device_core(self, channels: int, device=None):
+        """Fused-chain core: moving-average cascade + delayed-input
+        subtraction (float32, cumsum formulation, the prefix sums in
+        float64: ``ops/filter.window_sum``) on ``device`` (default: the
+        block's); carry = per-stage history [cascade, C, D(, 2)]."""
+        d, casc = self._average_size, self._cascade_size
+        shape = (casc, channels, d, 2) if self.dtype.is_complex \
+            else (casc, channels, d)
+        dev = self.device if device is None else torch.device(device)
+        carry0 = torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        def step(carry, x):
+            cur = x
+            hists = []
+            delayed = None
+            for s in range(casc):
+                ext = torch.cat([carry[s], cur], dim=1)
+                avg = fops.window_sum(ext, d, dim=1) / d
+                hists.append(ext[:, -d:])
+                if s == 0:
+                    delayed = ext[:, 1:1 + x.shape[1]]
+                cur = avg
+            return torch.stack(hists), delayed - cur
+
+        return carry0, step
+
+    # -- auto-fusion protocol (core/fusion.py) -------------------------- #
+    def fuse_ready(self) -> bool:
+        return self.dtype.is_float and self.dtype.bits == 32
+
+    def fuse_export(self, channels: int):
+        carry0, step = self.device_core(channels)
+        h = self._hists  # [casc, d] complex64 or float32
+        if self.dtype.is_complex:
+            h = np.stack([h.real, h.imag], -1)
+        carry = torch.from_numpy(h.astype(np.float32))[:, None]
+        return carry.to(self.device), step
+
+    def fuse_import(self, carry) -> None:
+        c = carry.cpu().numpy()
+        if self.dtype.is_complex:
+            self._hists = (c[:, 0, :, 0]
+                           + 1j * c[:, 0, :, 1]).astype(self.dtype.np)
+        else:
+            self._hists = c[:, 0].astype(self._hists.dtype)
+
+
+# ---------------------------------------------------------------------- #
+# /comms/envelope_detector (reference: filter/EnvelopeDetector.cpp)
+# ---------------------------------------------------------------------- #
+@register_block("/comms/envelope_detector", "/blocks/envelope_detector")
+class EnvelopeDetector(Block):
+    """Attack/release envelope follower; any real/complex input, float
+    output; lookahead delay via retained input samples. The follower runs
+    on the topology's device: the E1 kernel on CUDA."""
+
+    DOC = {
+        "category": "/Filter",
+        "keywords": ["envelope", "detector", "attack", "release", "agc"],
+        "params": {
+            "attack": {"label": "Attack", "default": 10.0,
+                       "units": "samples",
+                       "desc": "Attack time constant (gain e^{-1/attack})."},
+            "release": {"label": "Release", "default": 10.0,
+                        "units": "samples"},
+            "lookahead": {"label": "Lookahead", "default": 0,
+                          "units": "samples"},
+        },
+    }
+
+    def __init__(self, dtype="complex_float32"):
+        super().__init__()
+        self.dtype = DType.parse(dtype)
+        self.out_dtype = DType.parse("float32")
+        self.setup_input(0, self.dtype)
+        self.setup_output(0, self.out_dtype)
+        self._envelope = 0.0
+        self._lookahead = 0
+        self.set_attack(10.0)
+        self.set_release(10.0)
+
+    def set_attack(self, attack: float):
+        self._attack = float(attack)
+        self._attack_gain = float(np.exp(-1.0 / attack))
+        self._bump_fuse_epoch()
+
+    def get_attack(self) -> float:
+        return self._attack
+
+    def set_release(self, release: float):
+        self._release = float(release)
+        self._release_gain = float(np.exp(-1.0 / release))
+        self._bump_fuse_epoch()
+
+    def get_release(self) -> float:
+        return self._release
+
+    def set_lookahead(self, lookahead: int):
+        self._lookahead = int(lookahead)
+        self._bump_fuse_epoch()
+
+    def get_lookahead(self) -> int:
+        return self._lookahead
+
+    def _gains(self):
+        # float32, as the JAX block hands them to its scans
+        return np.float32(self._attack_gain), np.float32(self._release_gain)
+
+    def activate(self):
+        self._envelope = 0.0
+
+    def work(self):
+        port = self.input(0)
+        if port.elements() <= self._lookahead:
+            port.set_reserve(self._lookahead + 1)
+            return
+        port.set_reserve(0)
+        n = port.elements() - self._lookahead
+        buf = np.asarray(port.buffer(port.elements()))[self._lookahead:]
+        # |x| per dtype (reference FxptHelpers getAbs)
+        if self.dtype.is_complex_int:
+            mag2 = (buf[..., 0].astype(np.float64) ** 2
+                    + buf[..., 1].astype(np.float64) ** 2)
+            xabs = np.sqrt(mag2).astype(np.float32)
+        elif self.dtype.is_complex:
+            xabs = np.abs(buf).astype(np.float32)
+        else:
+            xabs = np.abs(buf.astype(np.float32))
+        y, env = fops.envelope_scan(
+            torch.from_numpy(np.ascontiguousarray(xabs)).to(self.device),
+            np.float32(self._envelope), *self._gains())
+        self._envelope = float(env)
+        port.consume(n)
+        self.output(0).post(y.cpu().numpy())
+
+    def device_core(self, channels: int, device=None):
+        """Fused-chain core: attack/release follower over [C, T(, 2)] on
+        ``device`` (default: the block's), a scan over time with a [C]
+        envelope carry. (Lookahead is a stream-windowing feature of the
+        block runtime; the fused core requires lookahead == 0.)"""
+        if self._lookahead != 0:
+            raise TypeError("fused envelope core requires lookahead == 0")
+        ga, gr = self._gains()
+        dev = self.device if device is None else torch.device(device)
+        carry0 = torch.zeros((channels,), dtype=torch.float32, device=dev)
+        # blocked-parallel path: the follower is contractive, so blocks
+        # warm-started W samples early are exact to f32 resolution
+        # (ops/filter.envelope_blocked); W is static per taps-epoch.
+        W = fops.envelope_warmup(self._attack, self._release)
+        BLK = 8192
+
+        def step(carry, x):
+            if x.dim() == 3:  # planar complex -> magnitude
+                mag = torch.sqrt(x[..., 0] ** 2 + x[..., 1] ** 2)
+            else:
+                mag = torch.abs(x)
+            t = mag.shape[1]
+            # the JAX package's rule: the blocked form pays W+L steps per
+            # row, worth it only when t spans at least 4 blocks
+            if t % BLK == 0 and t >= 4 * BLK and W <= 2 * BLK:
+                y, env_f = fops.envelope_blocked(mag, carry, ga, gr, BLK, W)
+            else:
+                y, env_f = fops.envelope_scan(mag, carry, ga, gr)
+            return env_f, y
+
+        return carry0, step
+
+    # -- auto-fusion protocol (core/fusion.py) -------------------------- #
+    def fuse_ready(self) -> bool:
+        return (self._lookahead == 0
+                and self.dtype.is_float and self.dtype.bits == 32)
+
+    def fuse_export(self, channels: int):
+        _, step = self.device_core(channels)
+        carry = torch.full((channels,), np.float32(self._envelope),
+                           dtype=torch.float32, device=self.device)
+        return carry, step
+
+    def fuse_import(self, carry) -> None:
+        self._envelope = float(carry[0])

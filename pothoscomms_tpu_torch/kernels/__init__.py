@@ -4,6 +4,10 @@
 - :mod:`.fft`: K2, the batched complex FFT.
 - :mod:`.fir_fft_fused`: K3, the one-pass FIR+FFT step, and the
   one-pass chain built on it.
+- :mod:`.envelope`: E1, the attack/release envelope follower (the JAX
+  package's envelope scans; not a Pallas port).
+- :mod:`.stream_scale` and :mod:`.layout_move`: P1 and P2, the probes of
+  the card's streaming roof and of in-row layout moves.
 - :mod:`.build`: nvcc build of ``csrc/*.cu`` and ctypes loading.
 
 Each wrapper launches its kernel for a CUDA tensor, uses its plain

@@ -15,6 +15,9 @@ The carry is ``hist [C, K-1, 2]``: the last K-1 raw inputs.
 
 Operator builders run the JAX package's float64 numpy code, so their
 float32 output equals the JAX package's bit for bit.
+
+Also here, as in the JAX module: the FM discriminator of the FM receive
+chain, :func:`freq_demod_planar`.
 """
 
 from __future__ import annotations
@@ -299,6 +302,21 @@ def fir_fft_chain(taps, nbins: int, channels: int, block: int,
     hist0 = torch.zeros((channels, run.k - 1, 2), dtype=torch.float32,
                         device=device)
     return run, hist0
+
+
+# ---------------------------------------------------------------------- #
+# FM receive chain (the 256-channel BASELINE config #4):
+# freq_demod -> dc_removal -> envelope
+# ---------------------------------------------------------------------- #
+def freq_demod_planar(x: torch.Tensor, last: torch.Tensor):
+    """FM discriminator on planar complex: out[i] = arg(x[i] * conj(x[i-1]))
+    (reference: demod/FreqDemod.cpp:49-71). x: [C, T, 2]; last: [C, 1, 2].
+    Returns (y [C, T] float32, new_last [C, 1, 2])."""
+    prev = torch.cat([last, x[:, :-1, :]], dim=1)
+    prod = cplx.mul(x, cplx.conj(prev))
+    y = torch.atan2(prod[..., 1], prod[..., 0])
+    # a copy, so the carry does not hold the whole block alive
+    return y, x[:, -1:, :].clone()
 
 
 def _f32_array(a) -> np.ndarray:

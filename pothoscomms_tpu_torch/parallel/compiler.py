@@ -1,0 +1,87 @@
+"""Fused-chain compiler: a linear chain of blocks -> ONE step function (the
+port of the JAX package's ``parallel/compiler.py``).
+
+The streaming executor (core/topology.py) is the semantics path: every
+block's work() runs separately with host-side buffers between them. For
+high-rate multichannel processing the whole chain runs as one step over a
+``[channels, time]`` block with an explicit carry, data staying on the
+device between stages.
+
+A block opts in by implementing ``device_core(channels, device=None)``
+returning ``(carry0, step)`` with ``step(carry, x) -> (carry', y)`` over
+planar float32 tensors:
+
+- real streams:   x is [C, T] float32
+- complex streams: x is [C, T, 2] planar float32
+
+:func:`compile_chain` composes the cores front to back. The JAX package
+jits the composition; torch runs eagerly, so the composed step is a plain
+call, and each core's hand kernels (e.g. the envelope's E1) launch from
+inside it. Carries are tuples (one entry per block).
+
+Not ported yet: ``compile_chain_sharded`` (channel sharding across
+cards, with ``torch.distributed``; ROADMAP Queue 1 item 15).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from pothoscomms_tpu_torch.parallel import cplx
+from pothoscomms_tpu_torch.parallel.chain import operators_from_numpy
+
+
+def compile_chain(blocks: Sequence[Any], channels: int, device=None):
+    """Compose ``device_core``s of a block chain into one step on
+    ``device`` (default: each block's own, the CPU outside a topology).
+
+    Returns (step, carry0): ``step(x, carry) -> (y, carry')``.
+    Raises TypeError for blocks that don't provide a device core.
+    """
+    cores = []
+    carries = []
+    for blk in blocks:
+        fn = getattr(blk, "device_core", None)
+        if fn is None:
+            raise TypeError(
+                f"{type(blk).__name__} has no device_core; it cannot be "
+                "fused (run it in the streaming executor instead)"
+            )
+        carry0, step = fn(channels, device=device)
+        cores.append(step)
+        carries.append(carry0)
+
+    def chain_step(x, carry):
+        new_carries = []
+        for step, c in zip(cores, carry):
+            c2, x = step(c, x)
+            new_carries.append(c2)
+        return x, tuple(new_carries)
+
+    return chain_step, tuple(carries)
+
+
+def chain_carry_from_numpy(carry, device="cpu"):
+    """A JAX ``compile_chain`` carry (its tuple of per-block carries, each
+    an array or a tuple of arrays, brought to numpy as float32) -> the
+    same nesting of tensors on ``device``, so both packages can run on
+    from one mid-stream state."""
+    return operators_from_numpy(carry, device)
+
+
+def run_chain_numpy(step, carry, x_np: np.ndarray):
+    """Convenience host wrapper: numpy (complex ok) in/out, the step run
+    where the carry lies."""
+    if np.iscomplexobj(x_np):
+        x = cplx.to_planar(np.ascontiguousarray(x_np, np.complex64))
+    else:
+        x = torch.from_numpy(np.ascontiguousarray(x_np, np.float32))
+    devices = [c.device for c in carry if isinstance(c, torch.Tensor)]
+    y, carry = step(x.to(devices[0] if devices else "cpu"), carry)
+    y = y.cpu().numpy()
+    if y.ndim >= 1 and y.shape[-1] == 2:
+        y = y[..., 0] + 1j * y[..., 1]
+    return y, carry

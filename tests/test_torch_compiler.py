@@ -1,0 +1,169 @@
+"""The FM receive chain (BASELINE config #4: freq_demod -> dc_removal ->
+envelope_detector) through the port's ``compile_chain`` against the JAX
+package's ``compile_chain`` and the float64 numpy oracle of
+tests/test_tpu_lane.py:201-243.
+
+Inputs are explicit float32 planar arrays made with
+numpy.random.default_rng(seed). Tolerances: the numpy oracle within
+2e-3 absolute (the JAX test's bound); the port against JAX within 1e-4
+absolute on outputs of order 1 (the DC stages' cumulative sums are taken
+in another order; the follower is contractive, so the difference does
+not grow); carries within the same bound, the discriminator's exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pothoscomms_tpu as jpkg
+import pothoscomms_tpu_torch as pkg
+from pothoscomms_tpu.parallel import compiler as jcompiler
+from pothoscomms_tpu_torch.kernels.envelope import envelope_rows
+from pothoscomms_tpu_torch.parallel import compiler
+
+torch.set_num_threads(1)
+
+TOL = 1e-4
+
+
+def fm_blocks(p, d=16, casc=2, attack=10.0, release=40.0):
+    demod = p.BlockRegistry.make("/comms/freq_demod", "complex_float32")
+    dc = p.BlockRegistry.make("/comms/dc_removal", "float32")
+    dc.set_average_size(d)
+    dc.set_cascade_size(casc)
+    env = p.BlockRegistry.make("/comms/envelope_detector", "float32")
+    env.set_attack(attack)
+    env.set_release(release)
+    return [demod, dc, env]
+
+
+def fm_input(rng, C, T, offset=0.0):
+    phase = np.cumsum(rng.uniform(-0.5, 0.5, size=(C, T)) + offset, axis=1)
+    return np.stack([np.cos(phase), np.sin(phase)], -1).astype(np.float32)
+
+
+def fm_oracle(x, d, casc, attack, release):
+    """tests/test_tpu_lane.py:222-243, float64, from a zero state."""
+    C, T = x.shape[:2]
+    xc = x[..., 0] + 1j * x[..., 1]
+    prev = np.concatenate([np.zeros((C, 1), np.complex64), xc[:, :-1]], 1)
+    dm = np.angle(xc * np.conj(prev)).astype(np.float32)
+    cur = dm
+    for s in range(casc):
+        ext = np.concatenate([np.zeros((C, d), np.float32), cur], axis=1)
+        cs = np.cumsum(ext, axis=1)
+        avg = (cs[:, d:] - cs[:, :-d]) / d
+        if s == 0:
+            delayed = ext[:, 1: 1 + T]
+        cur = avg.astype(np.float32)
+    dced = delayed - cur
+    ga, gr = np.exp(-1.0 / attack), np.exp(-1.0 / release)
+    envs = np.zeros(C, np.float64)
+    out = np.empty((C, T), np.float64)
+    mag = np.abs(dced)
+    for t in range(T):
+        g = np.where(mag[:, t] > envs, ga, gr)
+        envs = g * envs + (1.0 - g) * mag[:, t]
+        out[:, t] = envs
+    return out.astype(np.float32)
+
+
+def _close(a, b, tol=TOL):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0, atol=tol)
+
+
+def _close_carry(port, jax_carry):
+    assert len(port) == len(jax_carry) == 3
+    np.testing.assert_array_equal(port[0].numpy(), np.asarray(jax_carry[0]))
+    for a, b in zip(port[1:], jax_carry[1:]):
+        assert a.shape == np.asarray(b).shape
+        _close(a.numpy(), b)
+
+
+@pytest.mark.parametrize("C,T,blocked", [(8, 2048, False),
+                                         (2, 32768, True)])
+def test_fm_chain_matches_jax_and_oracle(C, T, blocked):
+    rng = np.random.default_rng(20)
+    x = fm_input(rng, C, T)
+    step, carry0 = compiler.compile_chain(fm_blocks(pkg), C)
+    jstep, jcarry0 = jcompiler.compile_chain(fm_blocks(jpkg), C)
+    assert [tuple(c.shape) for c in carry0] == \
+        [tuple(np.asarray(c).shape) for c in jcarry0]
+    y, carry = step(torch.from_numpy(x), carry0)
+    yj, jcarry = jstep(jnp.asarray(x), jcarry0)
+    assert y.shape == (C, T) and y.dtype == torch.float32
+    _close(y.numpy(), yj)
+    _close_carry(carry, jcarry)
+    _close(y.numpy(), fm_oracle(x, 16, 2, 10.0, 40.0), 2e-3)
+    # the blocked follower runs iff t % 8192 == 0, t >= 4*8192, W <= 16384
+    assert (T % 8192 == 0 and T >= 4 * 8192) == blocked
+
+
+def test_fm_chain_carry_across_calls():
+    """Two chained calls equal one call on the joined block, and equal the
+    JAX chain's two calls, carry included."""
+    rng = np.random.default_rng(21)
+    C, T = 4, 1024
+    x = fm_input(rng, C, 2 * T, offset=0.3)
+    step, carry0 = compiler.compile_chain(fm_blocks(pkg, 8, 3, 4.0, 16.0), C)
+    jstep, jcarry = jcompiler.compile_chain(
+        fm_blocks(jpkg, 8, 3, 4.0, 16.0), C)
+    whole, _ = step(torch.from_numpy(x), carry0)
+    carry = carry0
+    for h in range(2):
+        xh = x[:, h * T:(h + 1) * T]
+        y, carry = step(torch.from_numpy(np.ascontiguousarray(xh)), carry)
+        yj, jcarry = jstep(jnp.asarray(xh), jcarry)
+        _close(y.numpy(), yj)
+        _close(y.numpy(), whole[:, h * T:(h + 1) * T].numpy())
+    _close_carry(carry, jcarry)
+
+
+def test_chain_carry_from_numpy_resumes_a_jax_stream():
+    """A mid-stream JAX carry, brought over with chain_carry_from_numpy,
+    lets the port continue the stream the JAX chain started."""
+    rng = np.random.default_rng(22)
+    C, T = 3, 2048
+    jstep, jcarry = jcompiler.compile_chain(fm_blocks(jpkg), C)
+    _, jcarry = jstep(jnp.asarray(fm_input(rng, C, T)), jcarry)
+    carry = compiler.chain_carry_from_numpy(
+        tuple(np.asarray(c) for c in jcarry))
+    assert all(isinstance(c, torch.Tensor) and c.dtype == torch.float32
+               for c in carry)
+    step, _ = compiler.compile_chain(fm_blocks(pkg), C)
+    x2 = fm_input(rng, C, T)
+    y, carry = step(torch.from_numpy(x2), carry)
+    yj, jcarry = jstep(jnp.asarray(x2), jcarry)
+    _close(y.numpy(), yj)
+    _close_carry(carry, jcarry)
+    assert compiler.chain_carry_from_numpy(((), np.zeros(2, np.float32))) \
+        [0] == ()
+
+
+def test_run_chain_numpy_complex_input():
+    rng = np.random.default_rng(23)
+    C, T = 2, 512
+    phase = np.cumsum(rng.normal(size=(C, T)) * 0.2, axis=1)
+    xc = np.exp(1j * phase).astype(np.complex64)
+    step, carry = compiler.compile_chain(fm_blocks(pkg), C)
+    jstep, jcarry = jcompiler.compile_chain(fm_blocks(jpkg), C)
+    y, carry = compiler.run_chain_numpy(step, carry, xc)
+    yj, _ = jcompiler.run_chain_numpy(jstep, jcarry, xc)
+    assert isinstance(y, np.ndarray) and y.shape == (C, T)
+    _close(y, yj)
+
+
+def test_compile_chain_on_cpu_launches_nothing_and_rejects_plain_blocks():
+    from pothoscomms_tpu_torch.core.fixtures import CollectorSink
+
+    before = envelope_rows.launches
+    step, carry = compiler.compile_chain(fm_blocks(pkg), 2)
+    step(torch.zeros(2, 64, 2), carry)
+    assert envelope_rows.launches == before  # CPU tensors: the twin
+    with pytest.raises(TypeError):
+        compiler.compile_chain([CollectorSink("float32")], 2)
+    env = fm_blocks(pkg)[2]
+    env.set_lookahead(3)
+    with pytest.raises(TypeError):
+        compiler.compile_chain([env], 2)

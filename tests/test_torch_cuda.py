@@ -9,7 +9,11 @@ Tolerances: max |kernel - plain| / max |plain| below 1e-5 for cgemm and
 the one-pass FIR+FFT (float32 sums over at most a few hundred terms, in
 another order) and 2e-5 for the FFT (as the JAX package's FFT test);
 spectra of the chains below 1e-5 against the same chain on the CPU;
-carries exact.
+carries exact. The probes P1 and P2 equal their plain versions bit for
+bit (x 2 and permutations are exact); E1 within rtol 1e-5 / atol 1e-6
+(tests/test_filter.py's envelope bound); the FM chain and FM topology on
+the card within 1e-4 absolute of the CPU (cumulative sums of DC removal
+taken in another order, on outputs of order 1).
 """
 
 import numpy as np
@@ -17,9 +21,15 @@ import pytest
 import torch
 
 from pothoscomms_tpu_torch.kernels.cgemm import cgemm, cgemm_plain
+from pothoscomms_tpu_torch.kernels.envelope import (envelope_rows,
+                                                    envelope_rows_plain)
 from pothoscomms_tpu_torch.kernels.fft import fft_c2c, fft_c2c_plain
 from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
     fir_fft_fused, fir_fft_fused_plain, make_fused_chain)
+from pothoscomms_tpu_torch.kernels.layout_move import (MODES, layout_move,
+                                                       layout_move_plain)
+from pothoscomms_tpu_torch.kernels.stream_scale import (stream_scale,
+                                                        stream_scale_plain)
 from pothoscomms_tpu_torch.parallel.chain import fir_fft_chain
 from pothoscomms_tpu_torch.parallel.fft import fft_planar
 
@@ -237,3 +247,150 @@ def test_block_path_topology_on_card(dev, fuse):
     assert k2 >= 1
     assert got.shape == ref.shape and got.dtype == np.complex64
     assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) < 1e-5
+
+
+@pytest.mark.parametrize("b,n,tb", [(512, 1024, 256), (37, 1024, 128),
+                                    (5, 7, 2), (1000, 36, 512), (1, 4, 1)])
+def test_stream_scale_kernel_equals_plain(dev, b, n, tb):
+    rng = np.random.default_rng(b + n)
+    xr, xi = _normal(rng, b, n).to(dev), _normal(rng, b, n).to(dev)
+    before = stream_scale.launches
+    yr, yi = stream_scale(xr, xi, tb)
+    rr, ri = stream_scale_plain(xr, xi, tb)
+    torch.cuda.synchronize()
+    assert stream_scale.launches == before + 1
+    assert torch.equal(yr, rr) and torch.equal(yi, ri)
+
+
+def test_stream_scale_unaligned_view(dev):
+    """A contiguous view that starts off a 16-byte boundary takes the
+    scalar path and is still exact."""
+    rng = np.random.default_rng(3)
+    x = _normal(rng, 2, 64 * 33 + 1).to(dev)
+    xr = x[0, 1:].view(33, 64)
+    xi = x[1, 1:].view(33, 64)
+    yr, yi = stream_scale(xr, xi, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(yr, xr * 2) and torch.equal(yi, xi * 2)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("b,n", [(256, 1024), (13, 1024), (3, 64),
+                                 (9, 8192), (5, 192)])
+def test_layout_move_kernel_equals_plain(dev, mode, b, n):
+    rng = np.random.default_rng(b * n)
+    x = _normal(rng, b, n).to(dev)
+    before = layout_move.launches
+    got = layout_move(x, mode)
+    ref = layout_move_plain(x, mode)
+    torch.cuda.synchronize()
+    assert layout_move.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("P,T,L,Wr", [
+    (4, 65536, 8192, 8192), (3, 4096, 4096, 0), (2, 1000, 1000, 0),
+    (1, 32768, 1024, 2048), (7, 96, 32, 64), (5, 3, 1, 1)])
+def test_envelope_kernel_matches_plain(dev, P, T, L, Wr):
+    rng = np.random.default_rng(P * T + L)
+    mag = torch.from_numpy(np.abs(rng.standard_normal((P, T),
+                                                      dtype=np.float32)))
+    env0 = torch.from_numpy(np.abs(rng.standard_normal(P, dtype=np.float32)))
+    ga, gr = np.float32(np.exp(-1 / 10.0)), np.float32(np.exp(-1 / 40.0))
+    before = envelope_rows.launches
+    y, e = envelope_rows(mag.to(dev), env0.to(dev), ga, gr, L, Wr)
+    torch.cuda.synchronize()
+    assert envelope_rows.launches == before + 1
+    yp, ep = envelope_rows_plain(mag, env0, ga, gr, L, Wr)
+    np.testing.assert_allclose(y.cpu().numpy(), yp.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(e.cpu().numpy(), ep.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_probe_and_envelope_wrappers_raise(dev):
+    x = torch.zeros(8, 1024, device=dev)
+    with pytest.raises(ValueError):          # non-contiguous plane
+        stream_scale(x.t(), x.t())
+    with pytest.raises(ValueError):          # N above the tile
+        layout_move(torch.zeros(2, 16384, device=dev), "A")
+    with pytest.raises(ValueError):          # non-contiguous
+        layout_move(torch.zeros(1024, 64, device=dev).t(), "B")
+    with pytest.raises(ValueError):          # non-contiguous
+        envelope_rows(x.t(), torch.zeros(1024, device=dev), 0.5, 0.5, 8, 0)
+    with pytest.raises(ValueError):          # env0 on another device
+        envelope_rows(x, torch.zeros(8), 0.5, 0.5, 1024, 0)
+
+
+def _fm_blocks(d=16, casc=2, attack=10.0, release=40.0):
+    from pothoscomms_tpu_torch import BlockRegistry
+
+    demod = BlockRegistry.make("/comms/freq_demod", "complex_float32")
+    dc = BlockRegistry.make("/comms/dc_removal", "float32")
+    dc.set_average_size(d)
+    dc.set_cascade_size(casc)
+    env = BlockRegistry.make("/comms/envelope_detector", "float32")
+    env.set_attack(attack)
+    env.set_release(release)
+    return [demod, dc, env]
+
+
+@pytest.mark.parametrize("C,T", [(8, 2048), (2, 32768)])
+def test_fm_compile_chain_on_card_matches_cpu(dev, C, T):
+    """The FM chain through compile_chain on the card (E1 unblocked at
+    T=2048, blocked at T=32768) against the same chain on the CPU, over
+    two chained steps."""
+    from pothoscomms_tpu_torch.parallel.compiler import compile_chain
+
+    rng = np.random.default_rng(C + T)
+    step_c, carry_c = compile_chain(_fm_blocks(), C, device=dev)
+    step_h, carry_h = compile_chain(_fm_blocks(), C)
+    before = envelope_rows.launches
+    for _ in range(2):
+        phase = np.cumsum(rng.uniform(-0.5, 0.5, size=(C, T)), axis=1)
+        x = torch.from_numpy(np.stack([np.cos(phase), np.sin(phase)],
+                                      -1).astype(np.float32))
+        y_c, carry_c = step_c(x.to(dev), carry_c)
+        y_h, carry_h = step_h(x, carry_h)
+        np.testing.assert_allclose(y_c.cpu().numpy(), y_h.numpy(),
+                                   rtol=0, atol=1e-4)
+        for a, b in zip(carry_c, carry_h):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                       atol=1e-4)
+    torch.cuda.synchronize()
+    assert envelope_rows.launches == before + 2
+
+
+def test_fm_topology_on_card_matches_cpu(dev):
+    """feeder -> freq_demod -> dc_removal -> envelope -> collector on
+    Topology(device="cuda:0"), fused (two blocked pulls of 2^16 on E1,
+    then a streamed drain), against the same topology on the CPU."""
+    from pothoscomms_tpu_torch import Topology
+    from pothoscomms_tpu_torch.core.fixtures import CollectorSink, FeederSource
+
+    rng = np.random.default_rng(12)
+    phase = np.cumsum(rng.normal(size=(1 << 17) + 5) * 0.2)
+    x = np.exp(1j * phase).astype(np.complex64)
+
+    def run(device):
+        blocks = _fm_blocks(32, 2, 4.0, 16.0)
+        feed = FeederSource("complex_float32")
+        sink = CollectorSink("float32")
+        topo = Topology(device=device)
+        topo.fuse_threshold = 4096
+        chain = [feed] + blocks + [sink]
+        for a, b in zip(chain[:-1], chain[1:]):
+            topo.connect(a, 0, b, 0)
+        feed.feed_buffer(x)
+        topo.commit()
+        assert topo.wait_inactive(timeout=60.0)
+        return sink.get_buffer(), topo
+
+    before = envelope_rows.launches
+    got, topo = run(dev)
+    torch.cuda.synchronize()
+    launched = envelope_rows.launches - before
+    ref, _ = run("cpu")
+    assert topo._segments[0].engage_count >= 1 and launched >= 2
+    assert got.shape == ref.shape == x.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
