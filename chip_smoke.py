@@ -4,18 +4,31 @@
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
 Phases, one or more lines each:
-  1. device, versions, TF32 flags (both set False);
+  1. device, versions, TF32 flags (both set False); every entry point of
+     the port called with no device (Topology, a lone block's device,
+     fir_fft_chain, make_fused_chain, compile_chain, the *_from_numpy
+     converters) lands on the card;
   2. nvcc build of the port's kernels from pothoscomms_tpu_torch/csrc/,
      one nvcc per source, all started together;
   3. K1 (cgemm) against its plain PyTorch version on the card;
-  4. K2 (fft_c2c) against its plain version (and, for information, cuFFT),
-     and fft_planar's split for rows above K2's 4096 (8192, 16384);
+  4. K2 (fft_c2c) against its plain version and a float64 numpy oracle
+     (both below 2e-5 of max |reference|), forward and inverse, 37 rows,
+     at every power of two from 2 to 4096, the 3-, 5- and 7-smooth sizes
+     48, 100, 384, 1000, 1536, 2187, 2401, 3000 and the prime 4093; and
+     fft_planar's split for rows above K2's 4096 (8192, 16384);
   5. path "chain", the function-level main path at full width:
      fir_fft_chain(64 complex taps, 1024 bins, 256 channels, 131072
      samples per step) for three chained steps, against the plain path on
      the card, a float64 numpy oracle, and the carry contract;
   6. the conv branch (200 taps), which reaches K2;
-  7. CUDA-event timings of the kernel and plain paths;
+  7. CUDA-event timings of the kernel and plain paths: the step, K1
+     beside its plain version and one complex64 torch.matmul, K2 beside
+     its plain version and cuFFT at [32768, 1024] and, through
+     benches_torch/probe_fft_layout.py's run(), at 32 Mi samples for n in
+     256, 1024, 4096, 384, 1000, each of those shapes first held against
+     the plain version (below 2e-5 of max |plain|); device times by
+     torch.profiler where it kept every event and read no less than the
+     bound, else "not measured";
   8. K3 (fir_fft_fused) against its plain version at [32768, 1024] with
      u_w [32768, 64];
   9. path "one_pass", the one-pass chain make_fused_chain at the same
@@ -31,12 +44,12 @@ Phases, one or more lines each:
      from commit() to wait_inactive() with where it went;
  11. path "stream_ceiling": benches_torch/probe_stream_ceiling.py's run()
      (P1, stream_scale, at [32768, 1024] for tb 128, 256, 512; its ms and
-     GB/s, the plain version's and copy_'s), then P1 equal to its plain
-     version bit for bit at each tb;
+     GB/s, the plain version's, one torch._foreach_mul's and copy_'s),
+     then P1 equal to its plain version bit for bit at each tb;
  12. path "layout": benches_torch/probe_layout.py's run() (P2,
-     layout_move A-D at [4096, 1024]; ms and GB/s per mode beside P1's),
-     then each mode equal to its plain version and to the probe's numpy
-     oracle on a host copy, bit for bit;
+     layout_move A-D at [4096, 1024]; ms and GB/s per mode beside its
+     one-call permute and P1's), then each mode equal to its plain
+     version and to the probe's numpy oracle on a host copy, bit for bit;
  13. E1 (envelope_rows) against its plain version at [256, 131072]
      blocked (L = Wr = 8192, attack 10, release 40), [256, 16384]
      unblocked and [1, 2^24] blocked, rtol 1e-5 / atol 1e-6; both timed at
@@ -56,9 +69,11 @@ Phases, one or more lines each:
      at the start, across pull boundaries and at the end match a float64
      oracle run from W + 2 D + 1 samples earlier (atol 2e-3), and the wall
      time from commit() to wait_inactive() with where it went.
-Then a JSON line of per-kernel results and, last, {"ok": true, "device":
-{...}}. A failed check exits non-zero without that last line, and so does
-a run without CUDA.
+Then a JSON line of per-kernel results (with each kernel's bound_ms and
+bound_by, from this run's shapes and the H100's published peaks, and
+library_ms, one PyTorch call computing the same function, or null) and,
+last, {"ok": true, "device": {...}}. A failed check exits non-zero without
+that last line, and so does a run without CUDA.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. A kernel's ``launches`` in the JSON line is the sum over
@@ -68,7 +83,6 @@ reported apart, as ``conv_branch_launches``.
 
 import contextlib
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -76,6 +90,21 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+
+
+# published peaks of one H100 SXM at 700 W (the on-chip measurement
+# table): HBM bytes per second, float32 operations per second off the
+# tensor cores
+HBM = 3.35e12
+F32_OPS = 67e12
+
+
+def bound(nbytes: float, ops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` (each input read once, each output written once)
+    and do ``ops`` float32 operations."""
+    t_bytes, t_ops = nbytes / HBM * 1e3, ops / F32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -92,6 +121,13 @@ def main() -> int:
               "nothing run", file=sys.stderr)
         return 1
 
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benches_torch"))
+    import probe_fft_layout
+    import probe_layout
+    import probe_stream_ceiling
+    from probe_stream_ceiling import device_ms, median_ms
+
+    from pothoscomms_tpu_torch import BlockRegistry, Topology
     from pothoscomms_tpu_torch.kernels import build
     from pothoscomms_tpu_torch.kernels.cgemm import cgemm, cgemm_plain
     from pothoscomms_tpu_torch.kernels.envelope import (envelope_rows,
@@ -103,8 +139,13 @@ def main() -> int:
     from pothoscomms_tpu_torch.kernels.fft import fft_c2c, fft_c2c_plain
     from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
         fir_fft_fused, fir_fft_fused_plain, make_fused_chain)
+    from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
+        fused_consts_from_numpy)
     from pothoscomms_tpu_torch.parallel.chain import (
-        combined_operand, fir_fft_chain, fir_multichannel)
+        carry_from_numpy, combined_operand, fir_fft_chain, fir_multichannel,
+        operators_from_numpy)
+    from pothoscomms_tpu_torch.parallel.compiler import (
+        chain_carry_from_numpy, compile_chain)
     from pothoscomms_tpu_torch.parallel.fft import fft_planar
 
     dev = torch.device("cuda:0")
@@ -121,23 +162,9 @@ def main() -> int:
         d = (got - ref).abs().max().item()
         return d, d / ref.abs().max().item()
 
-    def median_ms(fn, reps=5, warmup_s=0.25):
-        # warm up for a quarter second, so the clocks have left idle
-        fn()
-        t_end = time.perf_counter() + warmup_s
-        while time.perf_counter() < t_end:
-            fn()
-            torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
+    def f4(v):
+        """A device time from the profiler, or "not measured" (None)."""
+        return "not measured" if v is None else f"{v:.4f}"
 
     # -- 1. device ------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -155,6 +182,41 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
+    def device_types(obj):
+        """The device types of every tensor in obj (tensors, modules,
+        nested tuples)."""
+        if isinstance(obj, torch.Tensor):
+            return {obj.device.type}
+        if isinstance(obj, torch.nn.Module):
+            return {b.device.type for b in obj.buffers()}
+        if isinstance(obj, (tuple, list)):
+            return set().union(*(device_types(o) for o in obj))
+        return set()
+
+    z = np.zeros
+    lone = BlockRegistry.make("/comms/dc_removal", "float32")
+    defaults = {  # each entry point called with no device
+        "Topology()": {Topology().device.type},
+        "Block.device (no topology)": {lone.device.type},
+        "fir_fft_chain": device_types(fir_fft_chain(np.ones(8) / 8, 64, 2,
+                                                    256)),
+        "make_fused_chain": device_types(make_fused_chain(np.ones(8) / 8,
+                                                          1024)),
+        "compile_chain": device_types(compile_chain([lone], 2)[1]),
+        "operators_from_numpy": device_types(operators_from_numpy(
+            (z((3, 4), np.float32),))),
+        "carry_from_numpy": device_types(carry_from_numpy(
+            z((2, 7, 2), np.float32))),
+        "chain_carry_from_numpy": device_types(chain_carry_from_numpy(
+            (z((2, 1, 2), np.float32),))),
+        "fused_consts_from_numpy": device_types(fused_consts_from_numpy(
+            (None, None, None, (z((8, 128), np.float32),) * 2,
+             (z((64, 1024), np.float32),) * 2)))}
+    print("[1] entry points with no device land on: "
+          + ", ".join(f"{k} {sorted(v)}" for k, v in defaults.items()))
+    for name, kinds in defaults.items():
+        check(kinds == {"cuda"}, f"{name} with no device landed on {kinds}")
 
     # -- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -186,24 +248,33 @@ def main() -> int:
               f"(limit 1e-5)")
         check(rel < 1e-5, f"cgemm {label} disagrees with its plain version")
 
-    # -- 4. K2 against its plain version (cuFFT for information) ---------
+    # -- 4. K2 against its plain version and a float64 numpy oracle, at
+    # every power of two, 3-, 5- and 7-smooth sizes (the Stockham plan's
+    # mixed radices) and a prime (the direct DFT); 37 rows, so that a block
+    # of several rows is ragged --------------------------------------------
     k2_abs = 0.0
-    for n in (16, 64, 100, 384, 1024, 4096):
+    k2_sizes = [2 ** k for k in range(1, 13)] + [48, 100, 384, 1000, 1536,
+                                                 2187, 2401, 3000, 4093]
+    for n in k2_sizes:
         for inverse in (False, True):
-            x = on_card(normal(64, n, 2))
+            xh = normal(37, n, 2)
+            x = on_card(xh)
             got = fft_c2c(x, inverse)
             ref = fft_c2c_plain(x, inverse)
-            xc = torch.view_as_complex(x)
-            lib = torch.fft.ifft(xc) * n if inverse else torch.fft.fft(xc)
             torch.cuda.synchronize()
             d, rel = errs(got, ref)
-            _, rel_lib = errs(got, torch.view_as_real(lib))
+            xc = xh[..., 0].astype(np.float64) + 1j * xh[..., 1]
+            exp = np.fft.ifft(xc, axis=-1) * n if inverse \
+                else np.fft.fft(xc, axis=-1)
+            g = got.cpu().numpy()
+            rel64 = np.max(np.abs(g[..., 0] + 1j * g[..., 1] - exp)) \
+                / np.max(np.abs(exp))
             k2_abs = max(k2_abs, d)
             print(f"[4] fft_c2c n={n} {'inv' if inverse else 'fwd'}: "
-                  f"/max|plain| {rel:.3e} (limit 2e-5); "
-                  f"/max|cuFFT| {rel_lib:.3e} (information)")
-            check(rel < 2e-5, f"fft_c2c n={n} inverse={inverse} disagrees "
-                              f"with its plain version")
+                  f"/max|plain| {rel:.3e} (limit 2e-5), /max|float64 "
+                  f"numpy| {rel64:.3e} (limit 2e-5)")
+            check(rel < 2e-5 and rel64 < 2e-5, f"fft_c2c n={n} inverse="
+                  f"{inverse} disagrees with its plain version or numpy")
     for n in (8192, 16384):  # above K2's 4096: the two-factor split
         for inverse in (False, True):
             x = on_card(normal(64, n, 2))
@@ -319,20 +390,45 @@ def main() -> int:
         combined_operand(x0, carry0, NB, K, run.prev_pad), run.gr, run.gi))
     k1_ms = median_ms(lambda: cgemm(a_main, gr, gi))
     k1_plain_ms = median_ms(lambda: cgemm_plain(a_main, gr, gi))
+    # one complex64 torch.matmul computes K1's product: its library yardstick
+    a_c, g_c = torch.view_as_complex(a_main), torch.complex(gr, gi)
+    k1_lib_ms = median_ms(lambda: torch.matmul(a_c, g_c))
+    del a_c, g_c
     frames = specs[0].reshape(-1, NB, 2)
     k2_ms = median_ms(lambda: fft_c2c(frames))
     k2_plain_ms = median_ms(lambda: fft_c2c_plain(frames))
-    k2_cufft_ms = median_ms(lambda: torch.fft.fft(
-        torch.view_as_complex(frames)))
+    k2_cufft_ms = median_ms(lambda: probe_fft_layout.cufft(frames))
+    # the kernels' own time on the card (torch.profiler), without the
+    # host's enqueue, which CUDA events around one call include; None
+    # where the profiler lost events or read below the bound
+    k2_floor = probe_stream_ceiling.bytes_bound_ms(2 * frames.numel() * 4)
+    k2_device_ms = device_ms(fft_c2c, [(frames,)], per_call=1,
+                             floor_ms=k2_floor)
+    k2_cufft_device_ms = device_ms(probe_fft_layout.cufft, [(frames,)],
+                                   floor_ms=k2_floor)
+    # K2, its plain version and cuFFT at 32 Mi samples, each shape's
+    # output first held against the plain version's
+    k2_by_n = probe_fft_layout.run()
     print(f"[7] clocks.sm, power.draw after timing: "
           f"{smi('clocks.sm,power.draw')}")
     print(f"[7] on {card}: main path step {step_ms:.3f} ms "
           f"({C * T / step_ms / 1e3:.1f} Msamples/s), plain step "
           f"{step_plain_ms:.3f} ms")
     print(f"[7] cgemm [32768,1152]x[1152,1024] {k1_ms:.3f} ms, "
-          f"plain (torch.matmul) {k1_plain_ms:.3f} ms")
-    print(f"[7] fft_c2c [32768,1024] {k2_ms:.3f} ms, plain (DFT matmuls) "
-          f"{k2_plain_ms:.3f} ms, cuFFT {k2_cufft_ms:.3f} ms (information)")
+          f"plain (4 x torch.matmul) {k1_plain_ms:.3f} ms, one complex64 "
+          f"torch.matmul {k1_lib_ms:.3f} ms")
+    print(f"[7] fft_c2c [32768,1024] {k2_ms:.4f} ms ({f4(k2_device_ms)} "
+          f"ms on the card), plain (DFT matmuls) {k2_plain_ms:.3f} ms, cuFFT "
+          f"{k2_cufft_ms:.4f} ms ({f4(k2_cufft_device_ms)} on the card)")
+    for n, r in k2_by_n.items():
+        print(f"[7] fft_c2c n={n} at 32 Mi samples: /max|plain| "
+              f"{r['max_rel']:.3e} (limit 2e-5); {r['ms']:.4f} ms "
+              f"({f4(r['device_ms'])} on the card), plain "
+              f"{r['plain_ms']:.3f} ms, cuFFT {r['library_ms']:.4f} ms "
+              f"({f4(r['library_device_ms'])} on the card; bound "
+              f"{r['bound_ms']:.4f} ms)")
+        check(r["max_rel"] < 2e-5, f"fft_c2c n={n} at 32 Mi samples "
+                                   f"disagrees with its plain version")
 
     # -- 8. K3 against its plain version at full width --------------------
     run3 = make_fused_chain(taps, NB, device=dev)
@@ -404,7 +500,6 @@ def main() -> int:
     del x8, uw8, got, ref, got_nc, ref_nc, specs3, carries3
 
     # -- 10. path "block_api": FIR -> FFT through Topology(device) -------
-    from pothoscomms_tpu_torch import BlockRegistry, Topology
     from pothoscomms_tpu_torch.core import fusion
     from pothoscomms_tpu_torch.core.fixtures import (CollectorSink,
                                                      FeederSource)
@@ -506,10 +601,6 @@ def main() -> int:
     del out_b2
 
     # -- 11. path "stream_ceiling": the P1 probe's entry point ------------
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "benches_torch"))
-    import probe_layout
-    import probe_stream_ceiling
-
     zero_counts()
     p1 = probe_stream_ceiling.run()
     launches_p1 = read_counts()
@@ -527,7 +618,8 @@ def main() -> int:
         print(f"[11] stream_scale [32768,1024] tb={tb}: equal to its plain "
               f"version {same}; {p1[f'tb{tb}_ms']:.4f} ms, "
               f"{p1[f'tb{tb}_GBs']:.1f} GB/s (plain {p1['plain_GBs']:.1f}, "
-              f"copy_ {p1['copy_GBs']:.1f})")
+              f"one torch._foreach_mul {p1['library_GBs']:.1f}, copy_ "
+              f"{p1['copy_GBs']:.1f})")
         check(same, f"stream_scale tb={tb} differs from its plain version")
     p1_abs = 0.0
     del xr11, xi11, pr, pi, yr, yi
@@ -556,10 +648,15 @@ def main() -> int:
         torch.cuda.synchronize()
         same = torch.equal(got, ref)
         same_np = np.array_equal(got.cpu().numpy(), oracles[mode](x12_host))
+        one_call = p2[("B" if mode == "D" else mode) + "_plain_ms"]
         print(f"[12] layout_move {mode} [4096,1024]: equal to its plain "
               f"version {same}, to the probe's numpy oracle {same_np}; "
-              f"{p2[f'{mode}_ms']:.4f} ms, {p2[f'{mode}_GBs']:.1f} GB/s "
-              f"(plain {p2[f'{mode}_plain_ms']:.4f} ms; P1 at this size, "
+              f"{p2[f'{mode}_ms']:.4f} ms, {p2[f'{mode}_GBs']:.1f} GB/s, "
+              f"{f4(p2[f'{mode}_device_ms'])} ms on the card "
+              f"(plain version {p2[f'{mode}_plain_ms']:.4f} ms, "
+              f"{f4(p2[f'{mode}_plain_device_ms'])} on the card, one "
+              f"permute call {one_call:.4f} ms, bound "
+              f"{p2['bound_ms']:.4f} ms; P1 at this size, "
               f"tb={p2['P1_tb']}, {p2['P1_GBs']:.1f} GB/s, copy_ "
               f"{p2['copy_GBs']:.1f})")
         check(same and same_np and p2[f"{mode}_ok"],
@@ -602,8 +699,6 @@ def main() -> int:
     del mag, env0, y, yp
 
     # -- 14. path "fm_chain": compile_chain on the card -------------------
-    from pothoscomms_tpu_torch.parallel.compiler import compile_chain
-
     CF, TF, DF, CASC, ATT, REL = 256, 131072, 64, 2, 10.0, 40.0
     TS = 16384  # the shape of benches/bench_suite.py's fm_chain_256ch
 
@@ -836,20 +931,42 @@ def main() -> int:
                "layout": launches_p2, "fm_chain": launches_fm,
                "fm_block_api": launches15}
     par = "pothoscomms_tpu/parallel/pallas_kernels.py"
+    # the bound of each kernel at the shape its ms was taken: bytes of its
+    # inputs and outputs, and the float32 operations of its function
+    rows3, pp3 = C * T // NB, 64
+    bounds = {
+        "cgemm": bound(4 * (32768 * 1152 * 2 + 2 * 1152 * 1024
+                            + 32768 * 1024 * 2), 8 * 32768 * 1152 * 1024),
+        "fft_c2c": bound(2 * frames.numel() * 4,
+                         5 * frames.shape[0] * NB * np.log2(NB)),
+        "fir_fft_fused": bound(
+            4 * (2 * rows3 * NB * 2 + rows3 * pp3 * 2 + NB * 2
+                 + 2 * pp3 * NB),
+            rows3 * (5 * NB * np.log2(NB) + 6 * NB + 8 * pp3 * NB + 2 * NB)),
+        "stream_scale": bound(4 * 32768 * 1024 * 4, 2 * 32768 * 1024),
+        "layout_move": bound(2 * 4096 * 1024 * 4, 0),
+        "envelope": bound(4 * (2 * 256 * 131072 + 2 * 256),
+                          4 * 256 * 131072)}
+    # name: (source, TPU kernel, max |d|, ms, plain ms, one library call's
+    # ms or None where no single PyTorch call computes the function)
     measured = {
-        "cgemm": ("cgemm.cu", f"{par}:58", k1_abs, k1_ms, k1_plain_ms),
-        "fft_c2c": ("fft.cu", f"{par}:156", k2_abs, k2_ms, k2_plain_ms),
+        "cgemm": ("cgemm.cu", f"{par}:58", k1_abs, k1_ms, k1_plain_ms,
+                  k1_lib_ms),
+        "fft_c2c": ("fft.cu", f"{par}:156", k2_abs, k2_ms, k2_plain_ms,
+                    k2_cufft_ms),
         "fir_fft_fused": ("fir_fft_fused.cu", f"{par}:325", k3_abs, k3_ms,
-                          k3_plain_ms),
+                          k3_plain_ms, None),
         "stream_scale": ("stream_scale.cu", "benches/probe_pallas_ceiling"
-                         ".py:23", p1_abs, p1["tb256_ms"], p1["plain_ms"]),
+                         ".py:23", p1_abs, p1["tb256_ms"], p1["plain_ms"],
+                         p1["library_ms"]),
         "layout_move": ("layout_move.cu", "benches/probe_mosaic.py:24",
-                        p2_abs, p2["A_ms"], p2["A_plain_ms"]),
+                        p2_abs, p2["A_ms"], p2["A_plain_ms"],
+                        p2["A_plain_ms"]),
         "envelope": ("envelope.cu", "pothoscomms_tpu/ops/filter.py:403 "
                      "(an XLA scan, not a Pallas kernel)", e1_abs, e1_ms,
-                     e1_plain_ms)}
+                     e1_plain_ms, None)}
     kernels = []
-    for name, (src, where, err, ms, plain_ms) in measured.items():
+    for name, (src, where, err, ms, plain_ms, lib_ms) in measured.items():
         paths = {p: c[name] for p, c in by_path.items()}
         check(sum(paths.values()) > 0, f"{name} was launched on no path")
         kernels.append({
@@ -858,9 +975,26 @@ def main() -> int:
             "replaces": where,
             "launches": sum(paths.values()), "launches_by_path": paths,
             "conv_branch_launches": conv_launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": lib_ms})
+    # K2 and P2 take ~0.2 ms and ~10 us: CUDA events around one call also
+    # hold the host's enqueue, so their time on the card is given too
+    kernels[1]["device_ms"] = k2_device_ms
+    kernels[1]["library_device_ms"] = k2_cufft_device_ms
+    kernels[1]["by_n_at_32Mi_samples"] = k2_by_n
+    kernels[4]["device_ms"] = p2["A_device_ms"]
+    kernels[4]["plain_device_ms"] = p2["A_plain_device_ms"]
+    kernels[4]["device_ms_by_mode"] = {m: p2[f"{m}_device_ms"]
+                                       for m in MODES}
+    kernels[4]["plain_device_ms_by_mode"] = {
+        m: p2[f"{m}_plain_device_ms"] for m in MODES}
+    # P2: each mode's plain version is one permute copy; D's map is B's,
+    # so B's permute is D's one library call
     kernels[4]["ms_by_mode"] = {m: p2[f"{m}_ms"] for m in MODES}
     kernels[4]["plain_ms_by_mode"] = {m: p2[f"{m}_plain_ms"] for m in MODES}
+    kernels[4]["library_ms_by_mode"] = {
+        m: p2[f"{'B' if m == 'D' else m}_plain_ms"] for m in MODES}
     print(f"[16] FM oracle errors: fm_chain {fm_err:.3e}, fm_block_api "
           f"{fm_block_err:.3e}")
     print(json.dumps({"kernels": kernels}))

@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from pothoscomms_tpu_torch.core import placement
 from pothoscomms_tpu_torch.core.dtypes import DType
 from pothoscomms_tpu_torch.core.labels import Label
 from pothoscomms_tpu_torch.core.packet import Packet
@@ -521,9 +522,9 @@ class Block:
     @property
     def device(self) -> torch.device:
         """Where this block's float32 work runs: its topology's device
-        (the CPU for a block outside any topology)."""
+        (the card for a block outside any topology)."""
         topo = self._topology
-        return topo.device if topo is not None else torch.device("cpu")
+        return topo.device if topo is not None else placement.DEFAULT_DEVICE
 
     def downstream_congested(self) -> bool:
         """True when any downstream input queue is at/over capacity; the

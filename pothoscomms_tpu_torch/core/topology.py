@@ -12,9 +12,10 @@ Differences from the reference (deliberate):
   (core/fusion.py): under load a linear run of blocks executes as one
   device step per quantum, so the executor's granularity does not bound
   the hot loop.
-- A topology has one explicit ``device`` (``"cpu"`` or ``"cuda:0"``):
-  fused segments and the blocks' streaming float32 work run there;
-  float64 and integer streams stay on the host.
+- A topology has one ``device``, the card unless the caller names
+  another (``Topology(device="cpu")``; ``core/placement.py``): fused
+  segments and the blocks' streaming float32 work run there; float64 and
+  integer streams stay on the host.
 - Backpressure: the reference uses bounded buffer managers; every edge
   here has a per-port element/message capacity (InputPort.capacity) that
   gates upstream scheduling, plus per-port ``reserve`` gating and
@@ -26,15 +27,14 @@ from __future__ import annotations
 import time
 from typing import List, Tuple
 
-import torch
-
+from pothoscomms_tpu_torch.core import placement
 from pothoscomms_tpu_torch.core.block import Block
 
 
 class Topology:
-    def __init__(self, name: str = "topology", device="cpu"):
+    def __init__(self, name: str = "topology", device=None):
         self.name = name
-        self.device = torch.device(device)
+        self.device = placement.resolve(device)
         self.blocks: List[Block] = []
         self._committed = False
         # Auto-fusion (core/fusion.py): linear runs of device-core

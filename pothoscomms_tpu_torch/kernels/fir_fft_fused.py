@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pothoscomms_tpu_torch.core import placement
 from pothoscomms_tpu_torch.kernels import build
 from pothoscomms_tpu_torch.kernels.cgemm import cgemm_plain
 from pothoscomms_tpu_torch.kernels.fft import _twiddle_table, fft_c2c_plain
@@ -138,12 +139,13 @@ def fused_chain_consts(taps, nbins: int, pp: int):
                     for g in gc)
 
 
-def fused_consts_from_numpy(consts):
+def fused_consts_from_numpy(consts, device=None):
     """The JAX ``_fused_chain_consts(taps, nbins, pp)`` 5-tuple of float32
     numpy pairs ``(f8, tw, vmat, Hl, gcf)`` -> the port's natural-order
-    ``(H [nbins, 2], (gcr, gci) [pp, nbins])``. ``Hl`` is [m, ps] with
-    bin ps*8 + m; ``gcf`` columns are m-major (pallas_kernels.py:386,
-    :396); both permutations are undone, so no value changes."""
+    ``(H [nbins, 2], (gcr, gci) [pp, nbins])`` on ``device`` (default: the
+    card). ``Hl`` is [m, ps] with bin ps*8 + m; ``gcf`` columns are
+    m-major (pallas_kernels.py:386, :396); both permutations are undone,
+    so no value changes."""
     (hr, hi), (gfr, gfi) = consts[3], consts[4]
     u, v = np.asarray(hr).shape                       # [m(8), ps]
     pp = np.asarray(gfr).shape[0]
@@ -156,8 +158,10 @@ def fused_consts_from_numpy(consts):
             .transpose(0, 2, 1).reshape(pp, u * v)
 
     H = np.stack([unperm_h(hr), unperm_h(hi)], -1)
-    return torch.from_numpy(H), (torch.from_numpy(unperm_gc(gfr)),
-                                 torch.from_numpy(unperm_gc(gfi)))
+    device = placement.resolve(device)
+    return torch.from_numpy(H).to(device), (
+        torch.from_numpy(unperm_gc(gfr)).to(device),
+        torch.from_numpy(unperm_gc(gfi)).to(device))
 
 
 # ------------------------------------------------------------------ #
@@ -178,10 +182,11 @@ def correction_operand(x: torch.Tensor, hist: torch.Tensor, nbins: int,
 
 class FusedFirFftChain(nn.Module):
     """FIR -> windowed FFT over [C, T, 2] blocks on K3, with the K-1
-    sample carry. H and Gc are buffers on ``device``. The contract of
+    sample carry. H and Gc are buffers on ``device`` (default: the card).
+    The contract of
     ``make_fused_pallas_chain`` holds: K - 1 <= pp and nbins == 1024."""
 
-    def __init__(self, taps, nbins: int, pp: int = 64, device="cpu"):
+    def __init__(self, taps, nbins: int, pp: int = 64, device=None):
         super().__init__()
         taps = np.asarray(taps)
         self.k, self.nbins, self.pp = len(taps), int(nbins), int(pp)
@@ -192,6 +197,7 @@ class FusedFirFftChain(nn.Module):
             raise ValueError(f"the one-pass chain takes nbins == 1024, got "
                              f"{self.nbins}")
         H, (gcr, gci) = fused_chain_consts(taps, self.nbins, self.pp)
+        device = placement.resolve(device)
         for name, op in (("H", H), ("gcr", gcr), ("gci", gci)):
             self.register_buffer(name, op.to(device))
 
@@ -211,7 +217,7 @@ class FusedFirFftChain(nn.Module):
     run = forward
 
 
-def make_fused_chain(taps, nbins: int, pp: int = 64, device="cpu"):
+def make_fused_chain(taps, nbins: int, pp: int = 64, device=None):
     """The counterpart of ``make_fused_pallas_chain``: a
     :class:`FusedFirFftChain` whose ``run(x, hist)`` returns (spectra,
     new_hist)."""

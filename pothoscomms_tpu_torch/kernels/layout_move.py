@@ -18,7 +18,8 @@ import torch
 from pothoscomms_tpu_torch.kernels import build
 
 MODES = ("A", "B", "C", "D")
-MAX_N = 8192  # one row must fit the kernel's 32 KB shared-memory tile
+MAX_N = 8192  # one row must fit the kernel's shared-memory tile
+TILE = 2048   # words in the kernel's tile of rows of N <= 2048
 
 
 def layout_move_plain(x: torch.Tensor, mode: str) -> torch.Tensor:
@@ -57,7 +58,7 @@ def layout_move(x: torch.Tensor, mode: str) -> torch.Tensor:
     b, n = x.shape
     if n > MAX_N:
         raise ValueError(f"layout_move: N={n} above the kernel's {MAX_N}")
-    if -(-b // (MAX_N // n)) >= 2 ** 31:
+    if -(-b // max(1, TILE // n)) >= 2 ** 31:
         raise ValueError(f"layout_move: B={b} exceeds the kernel's grid")
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pothoscomms_tpu_torch.core import placement
 from pothoscomms_tpu_torch.kernels.cgemm import cgemm
 from pothoscomms_tpu_torch.parallel import cplx
 from pothoscomms_tpu_torch.parallel.fft import fft_planar
@@ -257,11 +258,11 @@ class FirFftChain(nn.Module):
     ``block`` is a multiple of ``nbins`` (prev_pad = min(128, nbins));
     else the Toeplitz matmul FIR when decim == 1, K <= 128 and ``block``
     is a multiple of 128; else the conv FIR. The operators are buffers on
-    ``device``.
+    ``device`` (the card unless the caller names another).
     """
 
     def __init__(self, taps, nbins: int, block: int, decim: int = 1,
-                 device="cpu"):
+                 device=None):
         super().__init__()
         taps = np.asarray(taps)
         self.nbins, self.k, self.decim = nbins, len(taps), decim
@@ -279,6 +280,7 @@ class FirFftChain(nn.Module):
         else:
             self.form = "conv"
             ops = dict(kernel=complex_fir_kernel(taps))
+        device = placement.resolve(device)
         for name, op in ops.items():
             self.register_buffer(name, op.to(device))
 
@@ -294,10 +296,11 @@ class FirFftChain(nn.Module):
 
 
 def fir_fft_chain(taps, nbins: int, channels: int, block: int,
-                  decim: int = 1, device="cpu"):
+                  decim: int = 1, device=None):
     """Build the chain and its initial carry: returns (run, hist0) with
     ``run(x, carry) -> (spectra, carry)`` a :class:`FirFftChain` and
-    hist0 zeros [channels, K-1, 2] on ``device``."""
+    hist0 zeros [channels, K-1, 2] on ``device`` (default: the card)."""
+    device = placement.resolve(device)
     run = FirFftChain(taps, nbins, block, decim, device)
     hist0 = torch.zeros((channels, run.k - 1, 2), dtype=torch.float32,
                         device=device)
@@ -326,15 +329,16 @@ def _f32_array(a) -> np.ndarray:
     return np.array(a, order="C")  # a writable copy the tensor may own
 
 
-def operators_from_numpy(ops, device="cpu"):
+def operators_from_numpy(ops, device=None):
     """The JAX package's operator arrays (nested tuples of float32 arrays,
     as its operator builders return them after ``np.asarray``) -> the
-    same nesting of tensors on ``device``."""
+    same nesting of tensors on ``device`` (default: the card)."""
     if isinstance(ops, (tuple, list)):
         return tuple(operators_from_numpy(o, device) for o in ops)
-    return torch.from_numpy(_f32_array(ops)).to(device)
+    return torch.from_numpy(_f32_array(ops)).to(placement.resolve(device))
 
 
-def carry_from_numpy(hist, device="cpu") -> torch.Tensor:
-    """A JAX-side carry hist [C, K-1, 2] (float32) -> tensor on ``device``."""
-    return torch.from_numpy(_f32_array(hist)).to(device)
+def carry_from_numpy(hist, device=None) -> torch.Tensor:
+    """A JAX-side carry hist [C, K-1, 2] (float32) -> tensor on ``device``
+    (default: the card)."""
+    return torch.from_numpy(_f32_array(hist)).to(placement.resolve(device))

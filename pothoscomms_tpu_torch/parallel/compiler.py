@@ -30,13 +30,14 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from pothoscomms_tpu_torch.core import placement
 from pothoscomms_tpu_torch.parallel import cplx
 from pothoscomms_tpu_torch.parallel.chain import operators_from_numpy
 
 
 def compile_chain(blocks: Sequence[Any], channels: int, device=None):
     """Compose ``device_core``s of a block chain into one step on
-    ``device`` (default: each block's own, the CPU outside a topology).
+    ``device`` (default: each block's own, the card outside a topology).
 
     Returns (step, carry0): ``step(x, carry) -> (y, carry')``.
     Raises TypeError for blocks that don't provide a device core.
@@ -64,23 +65,24 @@ def compile_chain(blocks: Sequence[Any], channels: int, device=None):
     return chain_step, tuple(carries)
 
 
-def chain_carry_from_numpy(carry, device="cpu"):
+def chain_carry_from_numpy(carry, device=None):
     """A JAX ``compile_chain`` carry (its tuple of per-block carries, each
     an array or a tuple of arrays, brought to numpy as float32) -> the
-    same nesting of tensors on ``device``, so both packages can run on
-    from one mid-stream state."""
+    same nesting of tensors on ``device`` (default: the card), so both
+    packages can run on from one mid-stream state."""
     return operators_from_numpy(carry, device)
 
 
 def run_chain_numpy(step, carry, x_np: np.ndarray):
     """Convenience host wrapper: numpy (complex ok) in/out, the step run
-    where the carry lies."""
+    where the carry lies (on the card for a carry that holds no tensor)."""
     if np.iscomplexobj(x_np):
         x = cplx.to_planar(np.ascontiguousarray(x_np, np.complex64))
     else:
         x = torch.from_numpy(np.ascontiguousarray(x_np, np.float32))
     devices = [c.device for c in carry if isinstance(c, torch.Tensor)]
-    y, carry = step(x.to(devices[0] if devices else "cpu"), carry)
+    y, carry = step(x.to(devices[0] if devices else placement.DEFAULT_DEVICE),
+                    carry)
     y = y.cpu().numpy()
     if y.ndim >= 1 and y.shape[-1] == 2:
         y = y[..., 0] + 1j * y[..., 1]

@@ -27,6 +27,13 @@ torch.set_num_threads(1)
 PACKAGES = {"port": (pkg, fix), "jax": (jpkg, jfix)}
 
 
+def _on_cpu(blk):
+    """A lone block placed on a CPU topology (the port's default device is
+    the card)."""
+    pkg.Topology(device="cpu")._register(blk)
+    return blk
+
+
 def run_fir(which, dtype, feeds, taps, M=1, L=1, complex_taps=False,
             frame_start="", frame_end=""):
     """feeder -> fir_filter -> collector in one package; ``feeds`` is a
@@ -43,7 +50,7 @@ def run_fir(which, dtype, feeds, taps, M=1, L=1, complex_taps=False,
     fir.set_frame_start_id(frame_start)
     fir.set_frame_end_id(frame_end)
     sink = fx.CollectorSink(dtype)
-    topo = p.Topology()
+    topo = p.Topology(device="cpu") if p is pkg else p.Topology()
     topo.connect(feed, 0, fir, 0)
     topo.connect(fir, 0, sink, 0)
     topo.commit()
@@ -180,7 +187,7 @@ def test_fir_wait_taps_gates_until_set():
     fir = pkg.BlockRegistry.make("/comms/fir_filter", "float32", "REAL")
     fir.set_wait_taps(True)
     sink = fix.CollectorSink("float32")
-    topo = pkg.Topology()
+    topo = pkg.Topology(device="cpu")
     topo.connect(feed, 0, fir, 0)
     topo.connect(fir, 0, sink, 0)
     topo.commit()
@@ -293,7 +300,7 @@ def test_labels_pass_through_fft():
     feed.feed_buffer(np.ones(64, np.complex64), [Label("m", 1, 17)])
     fft = pkg.BlockRegistry.make("/comms/fft", "complex_float32", 16, False)
     sink = fix.CollectorSink("complex_float32")
-    topo = pkg.Topology()
+    topo = pkg.Topology(device="cpu")
     topo.connect(feed, 0, fft, 0)
     topo.connect(fft, 0, sink, 0)
     assert topo.wait_inactive()
@@ -316,7 +323,7 @@ def test_fft_device_core_matches_streaming(dtype, inverse):
     else:
         x = (vals[:, 0] + 1j * vals[:, 1]).astype(np.complex64)
     ref, _ = run_fft("port", dtype, x, nb, inverse)
-    fft = pkg.BlockRegistry.make("/comms/fft", dtype, nb, inverse)
+    fft = _on_cpu(pkg.BlockRegistry.make("/comms/fft", dtype, nb, inverse))
     fft.input(0).push_buffer(x[:lead])
     assert fft.fuse_ready()
     carry, step = fft.fuse_export(1)

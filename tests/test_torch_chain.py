@@ -227,7 +227,7 @@ def test_fir_fft_chain_three_steps_matches_jax(k, nb, decim, form):
     rng = np.random.default_rng(29)
     C, T = 8, 4096
     taps = _taps(rng, k)
-    run, carry = chain.fir_fft_chain(taps, nb, C, T, decim)
+    run, carry = chain.fir_fft_chain(taps, nb, C, T, decim, device="cpu")
     assert run.form == form
     assert carry.shape == (C, k - 1, 2) and not carry.any()
     jrun, jcarry = jchain.fir_fft_chain(taps, nb, C, T, decim)
@@ -256,12 +256,13 @@ def test_chain_from_jax_operators_matches():
     taps = _taps(rng, K)
     jrun, jcarry = jchain.fir_fft_chain(taps, NB, C, T)
     g0, g1 = chain.operators_from_numpy(
-        jax_ops := jchain.combined_fir_fft_operators(taps, NB, 128))
+        jax_ops := jchain.combined_fir_fft_operators(taps, NB, 128),
+        device="cpu")
     assert all(isinstance(t, torch.Tensor) and t.dtype == torch.float32
                for t in (*g0, *g1))
     assert len(_flat(jax_ops)) == 4
     gr, gi = chain.stack_combined_operators(g0, g1)
-    carry = chain.carry_from_numpy(np.asarray(jcarry))
+    carry = chain.carry_from_numpy(np.asarray(jcarry), device="cpu")
     for _ in range(3):
         x = _x(rng, C, T)
         spec, carry = chain.fir_fft_combined_step(_t(x), carry, gr, gi,
@@ -308,7 +309,8 @@ def test_chain_flops_matches_jax_at_prev_pad_128(c, t, k, nb):
 
 
 def test_trace_and_annotate_write_a_trace(tmp_path):
-    run, carry = chain.fir_fft_chain(np.ones(4) / 4, 64, 2, 256)
+    run, carry = chain.fir_fft_chain(np.ones(4) / 4, 64, 2, 256,
+                                     device="cpu")
     x = torch.zeros(2, 256, 2)
     with profiling.trace(str(tmp_path)):
         with profiling.annotate("chain_step"):

@@ -86,7 +86,7 @@ def _close_carry(port, jax_carry):
 def test_fm_chain_matches_jax_and_oracle(C, T, blocked):
     rng = np.random.default_rng(20)
     x = fm_input(rng, C, T)
-    step, carry0 = compiler.compile_chain(fm_blocks(pkg), C)
+    step, carry0 = compiler.compile_chain(fm_blocks(pkg), C, device="cpu")
     jstep, jcarry0 = jcompiler.compile_chain(fm_blocks(jpkg), C)
     assert [tuple(c.shape) for c in carry0] == \
         [tuple(np.asarray(c).shape) for c in jcarry0]
@@ -106,7 +106,8 @@ def test_fm_chain_carry_across_calls():
     rng = np.random.default_rng(21)
     C, T = 4, 1024
     x = fm_input(rng, C, 2 * T, offset=0.3)
-    step, carry0 = compiler.compile_chain(fm_blocks(pkg, 8, 3, 4.0, 16.0), C)
+    step, carry0 = compiler.compile_chain(fm_blocks(pkg, 8, 3, 4.0, 16.0), C,
+                                          device="cpu")
     jstep, jcarry = jcompiler.compile_chain(
         fm_blocks(jpkg, 8, 3, 4.0, 16.0), C)
     whole, _ = step(torch.from_numpy(x), carry0)
@@ -128,17 +129,17 @@ def test_chain_carry_from_numpy_resumes_a_jax_stream():
     jstep, jcarry = jcompiler.compile_chain(fm_blocks(jpkg), C)
     _, jcarry = jstep(jnp.asarray(fm_input(rng, C, T)), jcarry)
     carry = compiler.chain_carry_from_numpy(
-        tuple(np.asarray(c) for c in jcarry))
+        tuple(np.asarray(c) for c in jcarry), device="cpu")
     assert all(isinstance(c, torch.Tensor) and c.dtype == torch.float32
                for c in carry)
-    step, _ = compiler.compile_chain(fm_blocks(pkg), C)
+    step, _ = compiler.compile_chain(fm_blocks(pkg), C, device="cpu")
     x2 = fm_input(rng, C, T)
     y, carry = step(torch.from_numpy(x2), carry)
     yj, jcarry = jstep(jnp.asarray(x2), jcarry)
     _close(y.numpy(), yj)
     _close_carry(carry, jcarry)
-    assert compiler.chain_carry_from_numpy(((), np.zeros(2, np.float32))) \
-        [0] == ()
+    assert compiler.chain_carry_from_numpy(((), np.zeros(2, np.float32)),
+                                           device="cpu")[0] == ()
 
 
 def test_run_chain_numpy_complex_input():
@@ -146,7 +147,7 @@ def test_run_chain_numpy_complex_input():
     C, T = 2, 512
     phase = np.cumsum(rng.normal(size=(C, T)) * 0.2, axis=1)
     xc = np.exp(1j * phase).astype(np.complex64)
-    step, carry = compiler.compile_chain(fm_blocks(pkg), C)
+    step, carry = compiler.compile_chain(fm_blocks(pkg), C, device="cpu")
     jstep, jcarry = jcompiler.compile_chain(fm_blocks(jpkg), C)
     y, carry = compiler.run_chain_numpy(step, carry, xc)
     yj, _ = jcompiler.run_chain_numpy(jstep, jcarry, xc)
@@ -158,7 +159,7 @@ def test_compile_chain_on_cpu_launches_nothing_and_rejects_plain_blocks():
     from pothoscomms_tpu_torch.core.fixtures import CollectorSink
 
     before = envelope_rows.launches
-    step, carry = compiler.compile_chain(fm_blocks(pkg), 2)
+    step, carry = compiler.compile_chain(fm_blocks(pkg), 2, device="cpu")
     step(torch.zeros(2, 64, 2), carry)
     assert envelope_rows.launches == before  # CPU tensors: the twin
     with pytest.raises(TypeError):

@@ -75,11 +75,19 @@ def test_cgemm_kernel_matches_plain(dev, b, n, m):
         assert _rel(got, ref) < 1e-5
 
 
-@pytest.mark.parametrize("n", [1, 2, 8, 16, 100, 128, 384, 1000, 2048, 4096])
+# chip_smoke.py phase 4's sizes: every power of two, 7-smooth sizes (the
+# Stockham plan's mixed radices) and a prime (the direct DFT)
+FFT_SIZES = [1] + [2 ** k for k in range(1, 13)] + [48, 100, 384, 1000,
+                                                    1536, 2187, 2401, 3000,
+                                                    4093]
+
+
+@pytest.mark.parametrize("n", FFT_SIZES)
 @pytest.mark.parametrize("inverse", [False, True])
 def test_fft_kernel_matches_plain_and_numpy(dev, n, inverse):
+    """B = 37 leaves a ragged last block for every rows-per-block > 1."""
     rng = np.random.default_rng(n)
-    x = _normal(rng, 24, n, 2)
+    x = _normal(rng, 37, n, 2)
     before = fft_c2c.launches
     got = fft_c2c(x.to(dev), inverse)
     ref = fft_c2c_plain(x.to(dev), inverse)
@@ -174,7 +182,7 @@ def test_fused_chain_on_card_matches_cpu(dev):
     C, T, K = 4, 8192, 64
     taps = (rng.normal(size=K) + 1j * rng.normal(size=K)) / K
     run_c = make_fused_chain(taps, 1024, device=dev)
-    run_h = make_fused_chain(taps, 1024)
+    run_h = make_fused_chain(taps, 1024, device="cpu")
     carry_c = torch.zeros(C, K - 1, 2, device=dev)
     carry_h = torch.zeros(C, K - 1, 2)
     before = fir_fft_fused.launches
@@ -195,7 +203,8 @@ def test_chain_on_card_matches_cpu(dev, k, nb, decim, form):
     C, T = 8, 4096
     taps = (rng.normal(size=k) + 1j * rng.normal(size=k)) / k
     run_c, carry_c = fir_fft_chain(taps, nb, C, T, decim, device=dev)
-    run_h, carry_h = fir_fft_chain(taps, nb, C, T, decim)
+    run_h, carry_h = fir_fft_chain(taps, nb, C, T, decim,
+                                     device="cpu")
     assert run_c.form == run_h.form == form
     for _ in range(3):
         x = _normal(rng, C, T, 2)
@@ -308,6 +317,18 @@ def test_envelope_kernel_matches_plain(dev, P, T, L, Wr):
                                atol=1e-6)
 
 
+def test_layout_move_unaligned_view(dev):
+    """A contiguous view that starts off a 16-byte boundary takes the
+    scalar global accesses and is still exact, in every mode."""
+    rng = np.random.default_rng(4)
+    x = _normal(rng, 1, 1024 * 13 + 1).to(dev)[0, 1:].view(13, 1024)
+    assert x.data_ptr() % 16 != 0
+    for mode in MODES:
+        got = layout_move(x, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, layout_move_plain(x, mode))
+
+
 def test_probe_and_envelope_wrappers_raise(dev):
     x = torch.zeros(8, 1024, device=dev)
     with pytest.raises(ValueError):          # non-contiguous plane
@@ -344,7 +365,7 @@ def test_fm_compile_chain_on_card_matches_cpu(dev, C, T):
 
     rng = np.random.default_rng(C + T)
     step_c, carry_c = compile_chain(_fm_blocks(), C, device=dev)
-    step_h, carry_h = compile_chain(_fm_blocks(), C)
+    step_h, carry_h = compile_chain(_fm_blocks(), C, device="cpu")
     before = envelope_rows.launches
     for _ in range(2):
         phase = np.cumsum(rng.uniform(-0.5, 0.5, size=(C, T)), axis=1)

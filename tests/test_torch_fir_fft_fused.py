@@ -58,7 +58,7 @@ def test_step_matches_jax_pallas_kernel(with_corr):
         interpret=True)
     exp = np.stack([np.asarray(yr).reshape(B, N),
                     np.asarray(yi).reshape(B, N)], -1)
-    H, (gcr, gci) = ff.fused_consts_from_numpy(consts)
+    H, (gcr, gci) = ff.fused_consts_from_numpy(consts, device="cpu")
     got = ff.fir_fft_fused(torch.from_numpy(x),
                            torch.from_numpy(uw) if with_corr else None,
                            H, gcr, gci)
@@ -69,7 +69,8 @@ def test_step_matches_jax_pallas_kernel(with_corr):
 @pytest.mark.parametrize("k", [2, 17, 64, 65])
 def test_consts_from_numpy_equal_fused_chain_consts(k):
     taps = _taps(np.random.default_rng(41), k)
-    H, (gcr, gci) = ff.fused_consts_from_numpy(_jax_consts(taps))
+    H, (gcr, gci) = ff.fused_consts_from_numpy(_jax_consts(taps),
+                                               device="cpu")
     H2, (gcr2, gci2) = ff.fused_chain_consts(taps, 1024, 64)
     assert H.dtype == gcr.dtype == torch.float32
     assert H.shape == (1024, 2) and gcr.shape == gci.shape == (64, 1024)
@@ -91,7 +92,7 @@ def test_chain_matches_jax_pallas_chain_oracle_and_combined_step(k):
     rng = np.random.default_rng(42 + k)
     C, T, NB = 2, 8192, 1024
     taps = _taps(rng, k)
-    run = ff.make_fused_chain(taps, NB)
+    run = ff.make_fused_chain(taps, NB, device="cpu")
     assert isinstance(run, torch.nn.Module)
     assert {n for n, _ in run.named_buffers()} == {"H", "gcr", "gci"}
     jrun = jpk.make_fused_pallas_chain(taps, NB, interpret=True)
@@ -152,8 +153,8 @@ def test_wrapper_never_counts_cpu_and_refuses_bad_operands():
     g = torch.zeros(8, 16)
     before = ff.fir_fft_fused.launches
     ff.fir_fft_fused(x, uw, H, g, g)
-    ff.make_fused_chain(np.ones(4) / 4, 1024).run(torch.zeros(1, 1024, 2),
-                                                 torch.zeros(1, 3, 2))
+    ff.make_fused_chain(np.ones(4) / 4, 1024, device="cpu").run(
+        torch.zeros(1, 1024, 2), torch.zeros(1, 3, 2))
     assert ff.fir_fft_fused.launches == before
     with pytest.raises(ValueError):        # no kernel and no plain path
         ff.fir_fft_fused(*(t.to("meta") for t in (x, uw, H, g, g)))
@@ -166,8 +167,8 @@ def test_wrapper_never_counts_cpu_and_refuses_bad_operands():
     with pytest.raises(ValueError):        # gci of another shape
         ff.fir_fft_fused(x, uw, H, g, torch.zeros(8, 15))
     with pytest.raises(ValueError):        # T not a multiple of nbins
-        ff.make_fused_chain(np.ones(4), 1024).run(torch.zeros(1, 1000, 2),
-                                                  torch.zeros(1, 3, 2))
+        ff.make_fused_chain(np.ones(4), 1024, device="cpu").run(
+            torch.zeros(1, 1000, 2), torch.zeros(1, 3, 2))
 
 
 @pytest.mark.parametrize("n", [8192, 16384, 257])

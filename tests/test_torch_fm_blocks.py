@@ -26,6 +26,13 @@ from tests.test_filter import dc_removal_oracle, envelope_oracle
 torch.set_num_threads(1)
 
 PACKAGES = {"port": (pkg, fix), "jax": (jpkg, jfix)}
+
+
+def _on_cpu(blk):
+    """A lone block placed on a CPU topology (the port's default device is
+    the card)."""
+    pkg.Topology(device="cpu")._register(blk)
+    return blk
 THRESH = 4096  # low fuse threshold so tests engage with small data
 
 
@@ -37,7 +44,7 @@ def run_blocks(which, blocks_of, dtype_in, dtype_out, feeds, fuse=False,
     blocks = blocks_of(p)
     feed = fx.FeederSource(dtype_in)
     sink = fx.CollectorSink(dtype_out)
-    topo = p.Topology()
+    topo = p.Topology(device="cpu") if p is pkg else p.Topology()
     topo.auto_fuse = fuse
     topo.fuse_threshold = threshold
     chain = [feed] + blocks + [sink]
@@ -108,7 +115,8 @@ def test_freq_demod_int_bit_exact(dtype, out):
 
 
 def test_freq_demod_fuse_export_import_roundtrip():
-    blk = pkg.BlockRegistry.make("/comms/freq_demod", "complex_float32")
+    blk = _on_cpu(pkg.BlockRegistry.make("/comms/freq_demod",
+                                         "complex_float32"))
     blk._prev = np.complex64(0.25 - 0.5j)
     carry, _ = blk.fuse_export(1)
     assert carry.shape == (1, 1, 2)
@@ -186,7 +194,7 @@ def test_dc_removal_float32_matches_jax(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "complex_float32"])
 def test_dc_removal_fuse_export_import_roundtrip(dtype):
     rng = np.random.default_rng(20)
-    blk = pkg.BlockRegistry.make("/comms/dc_removal", dtype)
+    blk = _on_cpu(pkg.BlockRegistry.make("/comms/dc_removal", dtype))
     blk.set_average_size(6)
     blk.set_cascade_size(3)
     h = rng.normal(size=(3, 6)).astype(np.float32)

@@ -124,7 +124,7 @@ def test_dc_core_prefix_sums_hold_float32_resolution_at_a_dc_offset():
     dcb = DCRemoval("float32")
     dcb.set_average_size(d)
     dcb.set_cascade_size(casc)
-    carry0, step = dcb.device_core(1)
+    carry0, step = dcb.device_core(1, device="cpu")
     _, y = step(carry0, _t(x)[None])
 
     def cascade(cur, cumsum):

@@ -36,7 +36,7 @@ def run_chain(build, feeds, fuse: bool, threshold=THRESH, which="port"):
     blocks, dtype_in, dtype_out = build(p)
     feed = fx.FeederSource(dtype_in)
     sink = fx.CollectorSink(dtype_out)
-    topo = p.Topology()
+    topo = p.Topology(device="cpu") if p is pkg else p.Topology()
     topo.auto_fuse = fuse
     topo.fuse_threshold = threshold
     chain = [feed] + blocks + [sink]
@@ -141,7 +141,7 @@ def test_label_disengages_and_reengages():
         blocks, _, _ = build(pkg)
         feed = FeederSource("float32")
         sink = CollectorSink("float32")
-        topo = Topology()
+        topo = Topology(device="cpu")
         topo.auto_fuse = fuse
         topo.fuse_threshold = THRESH
         for a, b in zip([feed] + blocks, blocks + [sink]):
@@ -180,7 +180,7 @@ def test_reconfig_mid_stream_rebuilds_cores():
         blocks, _, _ = mk_fir_fft(nb=128, k=9)(pkg)
         feed = FeederSource("complex_float32")
         sink = CollectorSink("complex_float32")
-        topo = Topology()
+        topo = Topology(device="cpu")
         topo.auto_fuse = fuse
         topo.fuse_threshold = THRESH
         for a, b in zip([feed] + blocks, blocks + [sink]):
@@ -256,7 +256,7 @@ def test_many_small_feeds_concat_pull():
     def run(fuse):
         blocks, _, do = build(pkg)
         sink = CollectorSink(do)
-        topo = Topology()
+        topo = Topology(device="cpu")
         topo.auto_fuse = fuse
         topo.fuse_threshold = 2048
         for a, b in zip(blocks, blocks[1:] + [sink]):

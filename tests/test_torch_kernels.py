@@ -77,7 +77,7 @@ def test_cpu_tensors_never_count_as_launches():
     cgemm(x, g, g)
     fft_c2c(x)
     taps = rng.normal(size=200)  # conv branch: FFT on K2
-    run, hist = fir_fft_chain(taps, 64, 2, 256)
+    run, hist = fir_fft_chain(taps, 64, 2, 256, device="cpu")
     run(torch.from_numpy(rng.normal(size=(2, 256, 2)).astype(np.float32)),
         hist)
     assert (cgemm.launches, fft_c2c.launches) == before

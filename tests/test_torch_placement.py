@@ -1,0 +1,115 @@
+"""The port's entry points run on the card unless the caller names a device.
+
+Each entry point is called with no device. On a machine with a card its
+tensors land there; without one (torch built for the CPU, or no card),
+the call raises torch's own error on its first allocation instead of
+carrying on on the CPU. Whether there is a card is decided inside each
+test, so every worker collects the same tests.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import pothoscomms_tpu_torch as pkg
+from pothoscomms_tpu_torch.core import placement
+from pothoscomms_tpu_torch.kernels import fir_fft_fused as ff
+from pothoscomms_tpu_torch.parallel import chain, compiler
+
+torch.set_num_threads(1)
+
+
+def _fm_blocks():
+    demod = pkg.BlockRegistry.make("/comms/freq_demod", "complex_float32")
+    dc = pkg.BlockRegistry.make("/comms/dc_removal", "float32")
+    env = pkg.BlockRegistry.make("/comms/envelope_detector", "float32")
+    return [demod, dc, env]
+
+
+def _zeros(*shape):
+    return np.zeros(shape, np.float32)
+
+
+# each builds something that holds tensors, with no device named
+ENTRY_POINTS = {
+    "fir_fft_chain": lambda: chain.fir_fft_chain(np.ones(8) / 8, 64, 2, 256),
+    "fir_fft_chain_conv": lambda: chain.fir_fft_chain(np.ones(200) / 200,
+                                                      64, 2, 256),
+    "FirFftChain": lambda: chain.FirFftChain(np.ones(8) / 8, 64, 256),
+    "make_fused_chain": lambda: ff.make_fused_chain(np.ones(8) / 8, 1024),
+    "compile_chain": lambda: compiler.compile_chain(_fm_blocks(), 2),
+    "device_core": lambda: _fm_blocks()[1].device_core(2),
+    "operators_from_numpy": lambda: chain.operators_from_numpy(
+        (_zeros(3, 4), (_zeros(2), _zeros(5)))),
+    "carry_from_numpy": lambda: chain.carry_from_numpy(_zeros(2, 7, 2)),
+    "chain_carry_from_numpy": lambda: compiler.chain_carry_from_numpy(
+        (_zeros(2, 1, 2), (_zeros(2, 2, 16),), (_zeros(2),))),
+    "fused_consts_from_numpy": lambda: ff.fused_consts_from_numpy(
+        (None, None, None, (_zeros(8, 128), _zeros(8, 128)),
+         (_zeros(64, 1024), _zeros(64, 1024)))),
+}
+
+
+def _device_types(obj) -> set:
+    """The device types of every tensor in obj (tensors, modules, nested
+    tuples and lists)."""
+    if isinstance(obj, torch.Tensor):
+        return {obj.device.type}
+    if isinstance(obj, torch.nn.Module):
+        return {b.device.type for b in obj.buffers()}
+    if isinstance(obj, (tuple, list)):
+        return set().union(*(_device_types(o) for o in obj))
+    return set()
+
+
+def test_the_default_is_the_card():
+    assert placement.DEFAULT_DEVICE == torch.device("cuda")
+    assert placement.resolve(None) == torch.device("cuda")
+    assert placement.resolve("cpu") == torch.device("cpu")
+    assert pkg.Topology().device == torch.device("cuda")
+    assert pkg.Topology(device="cpu").device == torch.device("cpu")
+    blk = pkg.BlockRegistry.make("/comms/dc_removal", "float32")
+    assert blk.device == torch.device("cuda")      # outside any topology
+    pkg.Topology(device="cpu")._register(blk)
+    assert blk.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_lands_on_the_card_or_raises(name):
+    build = ENTRY_POINTS[name]
+    if torch.cuda.is_available():
+        assert _device_types(build()) == {"cuda"}
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_follows_the_one_default(name, monkeypatch):
+    """With the one default pointed at the CPU, the same calls build on
+    the CPU: nothing else in the port chooses their device."""
+    monkeypatch.setattr(placement, "DEFAULT_DEVICE", torch.device("cpu"))
+    built = ENTRY_POINTS[name]()
+    assert _device_types(built) == {"cpu"}
+
+
+def test_topology_without_a_device_does_not_fall_back_to_the_cpu():
+    """A float32 FFT block in Topology() streams on the card; without one
+    the run raises rather than computing on the CPU."""
+    from pothoscomms_tpu_torch.core.fixtures import CollectorSink, FeederSource
+
+    feed = FeederSource("complex_float32")
+    fft = pkg.BlockRegistry.make("/comms/fft", "complex_float32", 16, False)
+    sink = CollectorSink("complex_float32")
+    topo = pkg.Topology()
+    topo.connect(feed, 0, fft, 0)
+    topo.connect(fft, 0, sink, 0)
+    feed.feed_buffer(np.ones(64, np.complex64))
+    if torch.cuda.is_available():
+        topo.commit()
+        assert topo.wait_inactive()
+        assert sink.get_buffer().shape == (64,)
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            topo.commit()
+            topo.wait_inactive()

@@ -9,6 +9,9 @@ Inputs are float32 arrays made with numpy.random.default_rng(seed).
 Tolerance: bit-exact everywhere (x 2 and permutations are exact).
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,3 +136,41 @@ def test_layout_move_rejects_bad_operands():
         layout_move(torch.zeros(2, 128), "E")
     with pytest.raises(TypeError):
         layout_move(torch.zeros(2, 128, dtype=torch.float64), "A")
+
+
+def _probe_module(name):
+    """A module of benches_torch/ (not a package), loaded by its path."""
+    path = Path(__file__).resolve().parents[1] / "benches_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_bt_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_p1_library_yardstick_computes_p1():
+    """chip_smoke's library_ms for P1 times one torch._foreach_mul of both
+    planes by 2: it must compute stream_scale's function, bit for bit."""
+    xr, xi = (torch.from_numpy(_normal(s, 64, N)) for s in (31, 32))
+    lr, li = torch._foreach_mul((xr, xi), 2.0)
+    pr, pi = stream_scale_plain(xr, xi)
+    assert torch.equal(lr, pr) and torch.equal(li, pi)
+
+
+@pytest.mark.parametrize("events,calls,per_call,ms,floor,holds", [
+    (20, 20, 1, 0.2132, 0.160, True),
+    (40, 20, 2, 0.1806, 0.160, True),
+    (19, 20, 1, 0.2132, 0.160, False),    # an event lost
+    (20, 20, 1, 0.1049, 0.160, False),    # below the bound
+    (20, 20, 1, 0.0092, 0.0100, False),   # P2 read from L2
+    (0, 20, 0, 0.0, 0.0, False),          # nothing recorded
+])
+def test_device_time_readings_need_every_event_and_the_bound(
+        events, calls, per_call, ms, floor, holds):
+    probe = _probe_module("probe_stream_ceiling")
+    assert probe.reading_holds(events, calls, per_call, ms, floor) is holds
+
+
+def test_bytes_bound_is_hbm_time():
+    probe = _probe_module("probe_stream_ceiling")
+    assert probe.bytes_bound_ms(2 * 4096 * 1024 * 4) == pytest.approx(
+        0.0100165, rel=1e-4)

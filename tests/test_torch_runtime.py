@@ -30,7 +30,7 @@ def _feed_collect(p, fx, dtype, feeds, copier_seed=None):
     (buffer, [(label id, index, data)])."""
     feeder = fx.FeederSource(dtype)
     collector = fx.CollectorSink(dtype)
-    topo = p.Topology()
+    topo = p.Topology(device="cpu") if p is pkg else p.Topology()
     if copier_seed is None:
         topo.connect(feeder, 0, collector, 0)
     else:
@@ -86,7 +86,7 @@ def test_signal_slot_wiring():
             self.taps = taps
 
     d, f = Designer(), Filter()
-    topo = Topology()
+    topo = Topology(device="cpu")
     topo.connect(d, "tapsChanged", f, "setTaps")
     d.call("setNumTaps", 5)
     assert f.taps == [0, 1, 2, 3, 4]
@@ -135,7 +135,7 @@ def test_feed_test_plan_roundtrip_equals_jax():
         for p, fx in PACKAGES:
             feeder = fx.FeederSource(dtype)
             collector = fx.CollectorSink(dtype)
-            topo = p.Topology()
+            topo = p.Topology(device="cpu") if p is pkg else p.Topology()
             topo.connect(feeder, 0, collector, 0)
             expected = feeder.feed_test_plan(plan)["expected"]
             assert topo.wait_inactive()
@@ -184,7 +184,7 @@ def test_bounded_backpressure_gates_producer():
     total = 50_000
     for _ in range(50):
         feeder.feed_buffer(np.ones(total // 50, np.float32))
-    topo = Topology()
+    topo = Topology(device="cpu")
     topo.connect(feeder, 0, mid, 0)
     topo.connect(mid, 0, sink, 0)
     topo.commit()
@@ -228,7 +228,7 @@ def test_backpressure_message_queue_bound():
     src = PacketSource(500)
     sink = SlowPacketSink()
     sink.input(0).set_capacity(None, messages=16)
-    topo = Topology()
+    topo = Topology(device="cpu")
     topo.connect(src, 0, sink, 0)
     topo.commit()
     max_q = 0
@@ -270,7 +270,7 @@ def test_packet_to_stream_to_packet_loopback():
     s2p.setMTU(6)
     feeder = fix.FeederSource("uint8")
     sink = fix.CollectorSink("uint8")
-    topo = Topology()
+    topo = Topology(device="cpu")
     topo.connect(feeder, 0, p2s, 0)
     topo.connect(p2s, 0, s2p, 0)
     topo.connect(s2p, 0, sink, 0)
@@ -296,10 +296,10 @@ def test_dtype_matrix_maps_to_numpy_and_torch():
 
 
 def test_topology_takes_an_explicit_device():
-    assert Topology().device == torch.device("cpu")
+    assert Topology().device == torch.device("cuda")
     assert Topology(device="cpu:0").device == torch.device("cpu:0")
     blk = fix.CollectorSink("float32")
-    assert blk.device == torch.device("cpu")  # outside any topology
+    assert blk.device == torch.device("cuda")  # outside any topology
 
 
 @pytest.mark.parametrize("qname", ["int16", "int32", "complex_int16",
@@ -328,7 +328,7 @@ def test_vector_source_repeat_under_source_quota():
     src.set_elements([1, 2, 3])
     src.set_mode("REPEAT")
     sink = fix.CollectorSink("int16")
-    topo = Topology()
+    topo = Topology(device="cpu")
     topo.connect(src, 0, sink, 0)
     topo.run_source_elements(10)
     np.testing.assert_array_equal(sink.get_buffer(), [1, 2, 3] * 4)
