@@ -10,7 +10,14 @@ Phases, one or more lines each:
      converters) lands on the card;
   2. nvcc build of the port's kernels from pothoscomms_tpu_torch/csrc/,
      one nvcc per source, all started together;
-  3. K1 (cgemm) against its plain PyTorch version on the card;
+  3. K1 (cgemm) against its plain PyTorch version on the card, at shapes
+     that take each of its two variants (tensor cores, SIMT; the SIMT one
+     also at the main path's shape, through an `a` off a 16-byte
+     boundary), and at the main path's shape with the chain's own 64-tap
+     operator also against a float64 product, beside the plain version's
+     error; the variant each launch took; the tensor-core variant's
+     operator kernel equal to its plain version bit for bit at that
+     operator;
   4. K2 (fft_c2c) against its plain version and a float64 numpy oracle
      (both below 2e-5 of max |reference|), forward and inverse, 37 rows,
      at every power of two from 2 to 4096, the 3-, 5- and 7-smooth sizes
@@ -22,7 +29,10 @@ Phases, one or more lines each:
      the card, a float64 numpy oracle, and the carry contract;
   6. the conv branch (200 taps), which reaches K2;
   7. CUDA-event timings of the kernel and plain paths: the step, K1
-     beside its plain version and one complex64 torch.matmul, K2 beside
+     beside its plain version and one complex64 torch.matmul (and its
+     operator build and SIMT variant apart, with K1's 3xTF32 bound, its
+     share of it, and the SIMT bound for comparison; K1 and the matmul
+     also on the card by torch.profiler), K2 beside
      its plain version and cuFFT at [32768, 1024] and, through
      benches_torch/probe_fft_layout.py's run(), at 32 Mi samples for n in
      256, 1024, 4096, 384, 1000, each of those shapes first held against
@@ -78,7 +88,11 @@ that last line, and so does a run without CUDA.
 Each path is driven with every launch count set to 0 just before it and
 read just after. A kernel's ``launches`` in the JSON line is the sum over
 the paths, ``launches_by_path`` gives each; the conv branch's are
-reported apart, as ``conv_branch_launches``.
+reported apart, as ``conv_branch_launches``. K1's entry adds
+``launches_by_variant`` (per path) and ``operator_launches`` (per path:
+each tensor-core launch also launches the operator kernel,
+``tf32_operator``); every K1 launch of the main path and the block API
+must go to its tensor-core variant.
 """
 
 import contextlib
@@ -94,16 +108,17 @@ import numpy as np
 
 # published peaks of one H100 SXM at 700 W (the on-chip measurement
 # table): HBM bytes per second, float32 operations per second off the
-# tensor cores
+# tensor cores, dense TF32 operations per second on them
 HBM = 3.35e12
 F32_OPS = 67e12
+TF32_OPS = 495e12
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, peak: float = F32_OPS):
     """(ms, "bytes" or "operations"): the least time the card could take
     to move ``nbytes`` (each input read once, each output written once)
-    and do ``ops`` float32 operations."""
-    t_bytes, t_ops = nbytes / HBM * 1e3, ops / F32_OPS * 1e3
+    and do ``ops`` operations at ``peak`` per second."""
+    t_bytes, t_ops = nbytes / HBM * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -129,7 +144,9 @@ def main() -> int:
 
     from pothoscomms_tpu_torch import BlockRegistry, Topology
     from pothoscomms_tpu_torch.kernels import build
-    from pothoscomms_tpu_torch.kernels.cgemm import cgemm, cgemm_plain
+    from pothoscomms_tpu_torch.kernels.cgemm import (
+        TENSOR_CORES, cgemm, cgemm_plain, tf32_operator, tf32_operator_plain,
+        variant)
     from pothoscomms_tpu_torch.kernels.envelope import (envelope_rows,
                                                         envelope_rows_plain)
     from pothoscomms_tpu_torch.kernels.layout_move import (
@@ -142,8 +159,9 @@ def main() -> int:
     from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
         fused_consts_from_numpy)
     from pothoscomms_tpu_torch.parallel.chain import (
-        carry_from_numpy, combined_operand, fir_fft_chain, fir_multichannel,
-        operators_from_numpy)
+        carry_from_numpy, combined_fir_fft_operators, combined_operand,
+        fir_fft_chain, fir_multichannel, operators_from_numpy,
+        stack_combined_operators)
     from pothoscomms_tpu_torch.parallel.compiler import (
         chain_carry_from_numpy, compile_chain)
     from pothoscomms_tpu_torch.parallel.fft import fft_planar
@@ -231,22 +249,68 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line:
                 print(f"    {log.stem.split('-')[0]}: {line.strip()}")
 
-    # -- 3. K1 against its plain version ----------------------------------
+    # -- 3. K1 against its plain version, both variants ------------------
     k1_abs = 0.0
     a_main = on_card(normal(32768, 1152, 2))
     gr, gi = on_card(normal(1152, 1024)), on_card(normal(1152, 1024))
+    # the same `a` 8 bytes off a 16-byte boundary, which TMA cannot
+    # address: the SIMT variant at the main path's shape
+    a_simt = torch.empty(a_main.numel() + 2, device=dev)[2:].view(
+        a_main.shape).copy_(a_main)
     for label, a, g in (
             ("[32768,1152]x[1152,1024]", a_main, (gr, gi)),
+            ("[32768,1152]x[1152,1024], `a` unaligned", a_simt, (gr, gi)),
             ("[37,100]x[100,77]", on_card(normal(37, 100, 2)),
-             (on_card(normal(100, 77)), on_card(normal(100, 77))))):
+             (on_card(normal(100, 77)), on_card(normal(100, 77)))),
+            ("[130,17]x[17,200]", on_card(normal(130, 17, 2)),
+             (on_card(normal(17, 200)), on_card(normal(17, 200)))),
+            ("[4096,63]x[63,1024]", on_card(normal(4096, 63, 2)),
+             (on_card(normal(63, 1024)), on_card(normal(63, 1024))))):
+        before = dict(cgemm.launches_by_variant)
         got = cgemm(a, *g)
         ref = cgemm_plain(a, *g)
         torch.cuda.synchronize()
+        took = [k for k, v in cgemm.launches_by_variant.items()
+                if v != before[k]]
         d, rel = errs(got, ref)
         k1_abs = max(k1_abs, d)
-        print(f"[3] cgemm {label}: max|d| {d:.3e}, /max|ref| {rel:.3e} "
-              f"(limit 1e-5)")
+        print(f"[3] cgemm {label} ({took}): max|d| {d:.3e}, /max|ref| "
+              f"{rel:.3e} (limit 1e-5)")
         check(rel < 1e-5, f"cgemm {label} disagrees with its plain version")
+        check(took == [variant(a.shape[1], g[0].shape[1],
+                               a.data_ptr() % 16 == 0)],
+              f"cgemm {label} took {took}")
+    # the main path's product with the chain's own operator (64 taps,
+    # 1024 bins, stacked [G1; G0]), kernel and plain against float64
+    taps3 = (rng.normal(size=64) + 1j * rng.normal(size=64)) / 64
+    gr3, gi3 = (g.to(dev) for g in stack_combined_operators(
+        *combined_fir_fft_operators(taps3, 1024, 128)))
+    got = cgemm(a_main, gr3, gi3)
+    ref = cgemm_plain(a_main, gr3, gi3)
+    exp = torch.view_as_real(torch.view_as_complex(a_main).to(
+        torch.complex128) @ torch.complex(gr3.double(), gi3.double()))
+    torch.cuda.synchronize()
+    d, rel = errs(got, ref)
+    k1_abs = max(k1_abs, d)
+    _, rel64 = errs(got.double(), exp)
+    _, plain64 = errs(ref.double(), exp)
+    print(f"[3] cgemm [32768,1152]x[1152,1024], the chain's 64-tap operator: "
+          f"/max|plain| {rel:.3e} (limit 1e-5); against float64 "
+          f"/max|y|: kernel (3xTF32) {rel64:.3e}, plain (float32) "
+          f"{plain64:.3e}; variants {cgemm.launches_by_variant}")
+    check(rel < 1e-5 and rel64 < 1e-5,
+          "cgemm with the chain's operator disagrees with its plain version "
+          "or float64")
+    # the operator kernel that every tensor-core launch runs first, at
+    # that operator
+    hi, lo = tf32_operator(gr3, gi3)
+    phi, plo = tf32_operator_plain(gr3, gi3)
+    torch.cuda.synchronize()
+    same = torch.equal(hi, phi) and torch.equal(lo, plo)
+    print(f"[3] tf32_operator [1152,1024] -> 2 x [2048,2304], the chain's "
+          f"operator: equal to its plain version {same}")
+    check(same, "tf32_operator differs from its plain version")
+    del got, ref, exp, gr3, gi3, hi, lo, phi, plo
 
     # -- 4. K2 against its plain version and a float64 numpy oracle, at
     # every power of two, 3-, 5- and 7-smooth sizes (the Stockham plan's
@@ -307,17 +371,22 @@ def main() -> int:
     xs6 = [on_card(normal(C6, T6, 2)) for _ in range(2)]
     torch.cuda.synchronize()
 
-    wrappers = {"cgemm": cgemm, "fft_c2c": fft_c2c,
+    wrappers = {"cgemm": cgemm, "tf32_operator": tf32_operator,
+                "fft_c2c": fft_c2c,
                 "fir_fft_fused": fir_fft_fused, "stream_scale": stream_scale,
                 "layout_move": layout_move, "envelope": envelope_rows}
 
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
+        for k in cgemm.launches_by_variant:
+            cgemm.launches_by_variant[k] = 0
 
     def read_counts():
         torch.cuda.synchronize()
-        return {name: w.launches for name, w in wrappers.items()}
+        counts = {name: w.launches for name, w in wrappers.items()}
+        counts["cgemm_by_variant"] = dict(cgemm.launches_by_variant)
+        return counts
 
     zero_counts()
     carries, specs = [carry0], []
@@ -336,9 +405,13 @@ def main() -> int:
 
     # -- 5. checks of the main path ---------------------------------------
     print(f"[5] main path fir_fft_chain C={C} T={T} K={K} NBINS={NB} "
-          f"({run.form}): launches cgemm {launches['cgemm']}, "
-          f"fft_c2c {launches['fft_c2c']}")
+          f"({run.form}): launches cgemm {launches['cgemm']} "
+          f"{launches['cgemm_by_variant']}, fft_c2c {launches['fft_c2c']}")
     check(launches["cgemm"] >= 3, "main path did not launch cgemm each step")
+    check(launches["cgemm_by_variant"][TENSOR_CORES] == launches["cgemm"],
+          "a main-path cgemm launch missed the tensor-core variant")
+    check(launches["tf32_operator"] == launches["cgemm"],
+          "a main-path tensor-core launch did not build its operator")
     for s, x in enumerate(xs):
         spec = specs[s]
         check(spec.shape == (C, T // NB, NB, 2), f"step {s} shape "
@@ -390,9 +463,27 @@ def main() -> int:
         combined_operand(x0, carry0, NB, K, run.prev_pad), run.gr, run.gi))
     k1_ms = median_ms(lambda: cgemm(a_main, gr, gi))
     k1_plain_ms = median_ms(lambda: cgemm_plain(a_main, gr, gi))
+    # K1's tensor-core variant rebuilds its operator on each call: that
+    # build alone, and the SIMT variant at the same shape (phase 3's
+    # unaligned `a`)
+    k1_operator_ms = median_ms(lambda: tf32_operator(gr, gi))
+    k1_simt_ms = median_ms(lambda: cgemm(a_simt, gr, gi))
+    del a_simt
     # one complex64 torch.matmul computes K1's product: its library yardstick
     a_c, g_c = torch.view_as_complex(a_main), torch.complex(gr, gi)
     k1_lib_ms = median_ms(lambda: torch.matmul(a_c, g_c))
+    # on the card (torch.profiler): K1's two kernels (operator build and
+    # product) a call, screened by K1's own bound, and the library call's,
+    # by the bytes
+    k1_bytes = 4 * (32768 * 1152 * 2 + 2 * 1152 * 1024 + 32768 * 1024 * 2)
+    k1_floor = probe_stream_ceiling.bytes_bound_ms(k1_bytes)
+    k1_flops = 8 * 32768 * 1152 * 1024
+    # the tensor-core variant's work: three TF32 passes on the tensor cores
+    k1_bound = bound(k1_bytes, 3 * k1_flops, TF32_OPS)
+    k1_device_ms = device_ms(cgemm, [(a_main, gr, gi)], per_call=2,
+                             floor_ms=k1_bound[0])
+    k1_lib_device_ms = device_ms(torch.matmul, [(a_c, g_c)],
+                                 floor_ms=k1_floor)
     del a_c, g_c
     frames = specs[0].reshape(-1, NB, 2)
     k2_ms = median_ms(lambda: fft_c2c(frames))
@@ -414,9 +505,17 @@ def main() -> int:
     print(f"[7] on {card}: main path step {step_ms:.3f} ms "
           f"({C * T / step_ms / 1e3:.1f} Msamples/s), plain step "
           f"{step_plain_ms:.3f} ms")
-    print(f"[7] cgemm [32768,1152]x[1152,1024] {k1_ms:.3f} ms, "
-          f"plain (4 x torch.matmul) {k1_plain_ms:.3f} ms, one complex64 "
-          f"torch.matmul {k1_lib_ms:.3f} ms")
+    k1_simt_bound = bound(k1_bytes, k1_flops)
+    print(f"[7] cgemm [32768,1152]x[1152,1024] {k1_ms:.3f} ms (tensor "
+          f"cores, its operator build {k1_operator_ms:.4f} ms of it; "
+          f"{f4(k1_device_ms)} ms on the card; SIMT variant "
+          f"{k1_simt_ms:.3f} ms), plain (4 x torch.matmul) "
+          f"{k1_plain_ms:.3f} ms, one complex64 torch.matmul "
+          f"{k1_lib_ms:.3f} ms ({f4(k1_lib_device_ms)} on the card); bound {k1_bound[0]:.3f} ms by "
+          f"{k1_bound[1]} (3xTF32 at {TF32_OPS / 1e12:.0f} TFLOP/s; "
+          f"{k1_bound[0] / k1_ms:.1%} of it, "
+          f"{3 * k1_flops / k1_ms / 1e9:.1f} TFLOP/s of TF32 passes), "
+          f"SIMT bound {k1_simt_bound[0]:.3f} ms by {k1_simt_bound[1]}")
     print(f"[7] fft_c2c [32768,1024] {k2_ms:.4f} ms ({f4(k2_device_ms)} "
           f"ms on the card), plain (DFT matmuls) {k2_plain_ms:.3f} ms, cuFFT "
           f"{k2_cufft_ms:.4f} ms ({f4(k2_cufft_device_ms)} on the card)")
@@ -566,6 +665,11 @@ def main() -> int:
           "the block path did not engage the pair core")
     check(launches_b["cgemm"] >= 2 and launches_b["fft_c2c"] >= 1,
           "the block path did not launch cgemm >= 2 and fft_c2c >= 1")
+    check(launches_b["cgemm_by_variant"][TENSOR_CORES]
+          == launches_b["cgemm"],
+          "a block-API cgemm launch missed the tensor-core variant")
+    check(launches_b["tf32_operator"] == launches_b["cgemm"],
+          "a block-API tensor-core launch did not build its operator")
     check(out_b.shape == (n_frames * NB,) and out_b.dtype == np.complex64,
           f"block path output {out_b.shape} {out_b.dtype}, expected "
           f"({n_frames * NB},) complex64")
@@ -935,8 +1039,7 @@ def main() -> int:
     # inputs and outputs, and the float32 operations of its function
     rows3, pp3 = C * T // NB, 64
     bounds = {
-        "cgemm": bound(4 * (32768 * 1152 * 2 + 2 * 1152 * 1024
-                            + 32768 * 1024 * 2), 8 * 32768 * 1152 * 1024),
+        "cgemm": k1_bound,
         "fft_c2c": bound(2 * frames.numel() * 4,
                          5 * frames.shape[0] * NB * np.log2(NB)),
         "fir_fft_fused": bound(
@@ -978,8 +1081,17 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "library_ms": lib_ms})
-    # K2 and P2 take ~0.2 ms and ~10 us: CUDA events around one call also
-    # hold the host's enqueue, so their time on the card is given too
+    kernels[0]["launches_by_variant"] = {
+        p: c["cgemm_by_variant"] for p, c in by_path.items()}
+    kernels[0]["operator_ms"] = k1_operator_ms
+    kernels[0]["device_ms"] = k1_device_ms
+    kernels[0]["library_device_ms"] = k1_lib_device_ms
+    kernels[0]["operator_launches"] = {
+        p: c["tf32_operator"] for p, c in by_path.items()}
+    kernels[0]["simt_ms"] = k1_simt_ms
+    # CUDA events around one call also hold the host's enqueue, which
+    # weighs on K2 and P2 (~0.2 ms and ~10 us), so their time on the card
+    # is given too, as K1's is above
     kernels[1]["device_ms"] = k2_device_ms
     kernels[1]["library_device_ms"] = k2_cufft_device_ms
     kernels[1]["by_n_at_32Mi_samples"] = k2_by_n

@@ -1,9 +1,16 @@
-"""K1: split-complex GEMM on interleaved complex f32 (``csrc/cgemm.cu``).
+"""K1: complex GEMM on interleaved complex f32 (``csrc/cgemm.cu``).
 
 The counterpart of ``cmatmul_pallas`` / ``cmatmul`` in
 ``pothoscomms_tpu/parallel/pallas_kernels.py``. :func:`cgemm` launches
-the CUDA kernel for a CUDA tensor and uses :func:`cgemm_plain` only for
-a CPU tensor; any other device raises.
+one of the two CUDA kernels of ``cgemm.cu`` for a CUDA tensor, picked by
+:func:`variant` from the shape before the launch, and uses
+:func:`cgemm_plain` only for a CPU tensor; any other device raises.
+
+The tensor-core variant reads ``a`` [B, N, 2] as the real matrix
+[B, 2N] and multiplies it by :func:`real_embedding` of the operator,
+K-major [2M, 2N], split into TF32 hi and lo planes
+(:func:`tf32_operator`), in three TF32 passes; :func:`tf32_operator_plain`
+and :func:`tf32_round` are the same arithmetic in PyTorch.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ import torch
 
 from pothoscomms_tpu_torch.kernels import build
 
+TENSOR_CORES, SIMT = "tensor_cores", "simt"
+
 
 def cgemm_plain(a: torch.Tensor, gr: torch.Tensor,
                 gi: torch.Tensor) -> torch.Tensor:
@@ -24,6 +33,48 @@ def cgemm_plain(a: torch.Tensor, gr: torch.Tensor,
     yr = torch.matmul(ar, gr) - torch.matmul(ai, gi)
     yi = torch.matmul(ar, gi) + torch.matmul(ai, gr)
     return torch.stack([yr, yi], dim=-1)
+
+
+def real_embedding(gr: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:
+    """The real embedding of G = gr + i gi [N, M], K-major: Bt [2M, 2N]
+    with Bt[2m, 2n] = gr, Bt[2m, 2n+1] = -gi, Bt[2m+1, 2n] = gi,
+    Bt[2m+1, 2n+1] = gr, so that ``a.reshape(B, 2N) @ Bt.T`` is y
+    [B, M, 2] interleaved, reshaped to [B, 2M]."""
+    n, m = gr.shape
+    re_row = torch.stack([gr.t(), -gi.t()], dim=-1).reshape(m, 2 * n)
+    im_row = torch.stack([gi.t(), gr.t()], dim=-1).reshape(m, 2 * n)
+    return torch.stack([re_row, im_row], dim=1).reshape(2 * m, 2 * n)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest, ties
+    to even: the kernel's ``tf32_rne``, in int32 arithmetic that wraps as
+    the kernel's uint32 does."""
+    u = x.contiguous().view(torch.int32)
+    u = (u + (0xFFF + ((u >> 13) & 1))) & -0x2000
+    return u.view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32_operator_plain(gr: torch.Tensor, gi: torch.Tensor):
+    """Plain version of :func:`tf32_operator`: the hi and lo planes of
+    :func:`real_embedding`."""
+    return tf32_split(real_embedding(gr, gi))
+
+
+def variant(n: int, m: int, aligned: bool = True) -> str:
+    """The kernel that takes a [B, N, 2] x [N, M]: the tensor cores where
+    TMA can address ``a`` as [B, 2N] f32 (N even and above 0, so rows are
+    a nonzero multiple of 16 bytes; ``aligned``: its start on 16 bytes);
+    else the SIMT kernel."""
+    if n > 0 and n % 2 == 0 and aligned:
+        return TENSOR_CORES
+    return SIMT
 
 
 def _check(a, gr, gi):
@@ -43,12 +94,49 @@ def _check(a, gr, gi):
                 f"{[tuple(o.shape) for o in ops]}")
 
 
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def tf32_operator(gr: torch.Tensor, gi: torch.Tensor):
+    """(Bt_hi, Bt_lo) [2M, 2N], the tensor-core variant's operator, from
+    contiguous float32 planes gr, gi [N, M]; on CUDA by the
+    ``cgemm_operator_tf32`` kernel (one pass, 8 bytes read and 32
+    written per complex element of G), on the CPU by its plain version."""
+    if gr.dim() != 2 or gr.shape != gi.shape or gr.device != gi.device \
+            or gr.dtype != torch.float32 or gi.dtype != torch.float32:
+        raise ValueError("tf32_operator: gr, gi must be float32 planes of "
+                         "one [N, M] shape on one device")
+    if gr.device.type == "cpu":
+        return tf32_operator_plain(gr, gi)
+    if gr.device.type != "cuda" or not (gr.is_contiguous()
+                                        and gi.is_contiguous()):
+        raise ValueError("tf32_operator: the kernel takes contiguous CUDA "
+                         "planes")
+    n, m = gr.shape
+    if -(-n // 32) > 65535:
+        raise ValueError(f"cgemm: N={n} exceeds the operator kernel's grid")
+    hi = torch.empty((2 * m, 2 * n), dtype=torch.float32, device=gr.device)
+    lo = torch.empty_like(hi)
+    with torch.cuda.device(gr.device):
+        err = _entries()[1](gr.data_ptr(), gi.data_ptr(), hi.data_ptr(),
+                            lo.data_ptr(), n, m, _stream(gr.device))
+    build.check(err, "cgemm_operator_tf32")
+    tf32_operator.launches += 1
+    return hi, lo
+
+
+tf32_operator.launches = 0
+
+
 def cgemm(a: torch.Tensor, gr: torch.Tensor,
           gi: torch.Tensor) -> torch.Tensor:
     """Complex product y [B, M, 2] = a [B, N, 2] @ (gr + i gi) [N, M].
 
     On CUDA every operand must be contiguous float32; the kernel runs on
-    the current stream.
+    the current stream. The tensor-core variant builds its operator from
+    gr, gi on each call (:func:`tf32_operator`, 38 MB at N = 1152,
+    M = 1024).
     """
     _check(a, gr, gi)
     if a.device.type == "cpu":
@@ -57,28 +145,53 @@ def cgemm(a: torch.Tensor, gr: torch.Tensor,
         raise ValueError(f"cgemm: no kernel for device {a.device}")
     if not all(t.is_contiguous() for t in (a, gr, gi)):
         raise ValueError("cgemm: operands must be contiguous")
+    n, m = gr.shape
+    return _launch(a, gr, gi, variant(n, m, a.data_ptr() % 16 == 0))
+
+
+def _launch(a: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,
+            kind: str) -> torch.Tensor:
+    """Launch K1's ``kind`` variant, picked by :func:`variant`, on the
+    operands :func:`cgemm` has checked. Counts the launch in
+    ``cgemm.launches`` and ``cgemm.launches_by_variant``."""
     b, n, _ = a.shape
     m = gr.shape[1]
-    if (m + 63) // 64 > 65535:
-        raise ValueError(f"cgemm: M={m} exceeds the kernel's grid")
-    fn = _entry()
     y = torch.empty((b, m, 2), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(a.data_ptr(), gr.data_ptr(), gi.data_ptr(), y.data_ptr(),
-                 b, n, m, stream)
-    build.check(err, "cgemm_f32")
+    simt, _, tc = _entries()
+    if kind == TENSOR_CORES:
+        tiles = -(-b // 128) * -(-2 * m // 128)
+        if max(b, 2 * n, 2 * m, tiles) >= 2 ** 31:
+            raise ValueError(f"cgemm: [{b}, {n}] x [{n}, {m}] exceeds the "
+                             "tensor-core kernel's int32 indices")
+        hi, lo = tf32_operator(gr, gi)
+        with torch.cuda.device(a.device):
+            err = tc(a.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                     y.data_ptr(), b, n, m, _stream(a.device))
+        build.check(err, "cgemm_f32_tc")
+    else:
+        if (m + 63) // 64 > 65535:
+            raise ValueError(f"cgemm: M={m} exceeds the kernel's grid")
+        with torch.cuda.device(a.device):
+            err = simt(a.data_ptr(), gr.data_ptr(), gi.data_ptr(),
+                       y.data_ptr(), b, n, m, _stream(a.device))
+        build.check(err, "cgemm_f32_simt")
     cgemm.launches += 1
+    cgemm.launches_by_variant[kind] += 1
     return y
 
 
 cgemm.launches = 0
+cgemm.launches_by_variant = {TENSOR_CORES: 0, SIMT: 0}
 
 
 @lru_cache(maxsize=None)
-def _entry():
-    fn = build.load("cgemm").cgemm_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _entries():
+    """(cgemm_f32_simt, cgemm_operator_tf32, cgemm_f32_tc) of the built
+    library."""
+    lib = build.load("cgemm")
+    fns = (lib.cgemm_f32_simt, lib.cgemm_operator_tf32, lib.cgemm_f32_tc)
+    for fn, sizes in zip(fns, (3, 2, 3)):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * sizes \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fns

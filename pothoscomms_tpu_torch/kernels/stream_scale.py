@@ -19,6 +19,11 @@ import torch
 from pothoscomms_tpu_torch.kernels import build
 
 
+# blocks a launch may take per SM: 16 waves of the 8 resident 256-thread
+# blocks of the kernel
+UNITS_PER_SM = 128
+
+
 def stream_scale_plain(xr: torch.Tensor, xi: torch.Tensor,
                        rows_per_block: int = 256):
     """Plain PyTorch version of :func:`stream_scale` (the row tile does
@@ -26,12 +31,21 @@ def stream_scale_plain(xr: torch.Tensor, xi: torch.Tensor,
     return xr * 2.0, xi * 2.0
 
 
+@lru_cache(maxsize=None)
+def _units(index: int) -> int:
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * UNITS_PER_SM
+
+
 def stream_scale(xr: torch.Tensor, xi: torch.Tensor,
                  rows_per_block: int = 256):
     """(2 xr, 2 xi) for two float32 planes of one shape [B, N].
 
-    ``rows_per_block`` is the probe's row tile tb: the rows one thread
-    block streams. On CUDA both planes must be contiguous.
+    ``rows_per_block`` is the probe's row tile tb, kept so the probe
+    sweeps tb as the TPU probe does; the kernel does not take it: its grid
+    fills the card whatever tb is, one flat range of both planes cut into
+    equal units (``csrc/stream_scale.cu``). On CUDA both planes must be
+    contiguous.
     """
     if xr.dim() != 2 or xr.shape != xi.shape:
         raise ValueError(f"stream_scale: planes must be one [B, N] shape, "
@@ -50,13 +64,12 @@ def stream_scale(xr: torch.Tensor, xi: torch.Tensor,
     if not (xr.is_contiguous() and xi.is_contiguous()):
         raise ValueError("stream_scale: planes must be contiguous")
     b, n = xr.shape
-    if -(-b // rows_per_block) >= 2 ** 31:
-        raise ValueError(f"stream_scale: B={b} exceeds the kernel's grid")
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     with torch.cuda.device(xr.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(),
-                       yi.data_ptr(), b, n, rows_per_block, stream)
+                       yi.data_ptr(), b, n,
+                       _units(torch.cuda.current_device()), stream)
     build.check(err, "stream_scale_f32")
     stream_scale.launches += 1
     return yr, yi

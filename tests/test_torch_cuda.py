@@ -5,7 +5,8 @@ no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: max |kernel - plain| / max |plain| below 1e-5 for cgemm and
+Tolerances: max |kernel - plain| / max |plain| below 1e-5 for cgemm (both
+variants; the tensor-core one also against float64) and
 the one-pass FIR+FFT (float32 sums over at most a few hundred terms, in
 another order) and 2e-5 for the FFT (as the JAX package's FFT test);
 spectra of the chains below 1e-5 against the same chain on the CPU;
@@ -20,7 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from pothoscomms_tpu_torch.kernels.cgemm import cgemm, cgemm_plain
+from pothoscomms_tpu_torch.kernels.cgemm import (
+    SIMT, TENSOR_CORES, cgemm, cgemm_plain, tf32_operator,
+    tf32_operator_plain, variant)
 from pothoscomms_tpu_torch.kernels.envelope import (envelope_rows,
                                                     envelope_rows_plain)
 from pothoscomms_tpu_torch.kernels.fft import fft_c2c, fft_c2c_plain
@@ -30,7 +33,8 @@ from pothoscomms_tpu_torch.kernels.layout_move import (MODES, layout_move,
                                                        layout_move_plain)
 from pothoscomms_tpu_torch.kernels.stream_scale import (stream_scale,
                                                         stream_scale_plain)
-from pothoscomms_tpu_torch.parallel.chain import fir_fft_chain
+from pothoscomms_tpu_torch.parallel.chain import (
+    combined_fir_fft_operators, fir_fft_chain, stack_combined_operators)
 from pothoscomms_tpu_torch.parallel.fft import fft_planar
 
 torch.set_num_threads(1)
@@ -58,21 +62,65 @@ def _normal(rng, *shape):
 
 
 @pytest.mark.parametrize("b,n,m", [(1, 1, 1), (37, 100, 77), (64, 256, 128),
-                                   (130, 17, 200), (5, 0, 9)])
+                                   (130, 17, 200), (5, 0, 9), (3, 2, 1),
+                                   (8, 8, 1024), (200, 1024, 8)])
 def test_cgemm_kernel_matches_plain(dev, b, n, m):
     rng = np.random.default_rng(b * 1000 + n)
     a = _normal(rng, b, n, 2).to(dev)
     gr, gi = _normal(rng, n, m).to(dev), _normal(rng, n, m).to(dev)
     before = cgemm.launches
+    by_variant = dict(cgemm.launches_by_variant)
     got = cgemm(a, gr, gi)
     ref = cgemm_plain(a, gr, gi)
     torch.cuda.synchronize()
     assert cgemm.launches == before + 1
+    by_variant[variant(n, m)] += 1
+    assert cgemm.launches_by_variant == by_variant
     assert got.shape == (b, m, 2)
     if n == 0:
         assert not got.any()
     else:
         assert _rel(got, ref) < 1e-5
+
+
+@pytest.mark.parametrize("b", [32768, 16384 + 37])
+def test_cgemm_tensor_cores_at_main_path_shape(dev, b):
+    """The main path's product, [B, 1152] x [1152, 1024] with the chain's
+    stacked 64-tap combined operator, on the tensor-core variant (the
+    ragged B leaves a partial last row tile), against the plain version
+    and a float64 product."""
+    rng = np.random.default_rng(b)
+    taps = (rng.normal(size=64) + 1j * rng.normal(size=64)) / 64
+    gr, gi = (g.to(dev) for g in stack_combined_operators(
+        *combined_fir_fft_operators(taps, 1024, 128)))
+    a = _normal(rng, b, 1152, 2).to(dev)
+    by_variant = dict(cgemm.launches_by_variant)
+    operators = tf32_operator.launches
+    got = cgemm(a, gr, gi)
+    ref = cgemm_plain(a, gr, gi)
+    torch.cuda.synchronize()
+    assert cgemm.launches_by_variant[TENSOR_CORES] \
+        == by_variant[TENSOR_CORES] + 1
+    assert tf32_operator.launches == operators + 1
+    assert cgemm.launches_by_variant[SIMT] == by_variant[SIMT]
+    assert _rel(got, ref) < 1e-5
+    g64 = torch.complex(gr.double(), gi.double())
+    exp = torch.view_as_real(torch.view_as_complex(a).to(torch.complex128)
+                             @ g64)
+    assert _rel(got.double(), exp) < 1e-5
+
+
+@pytest.mark.parametrize("n,m", [(1152, 1024), (100, 77), (33, 17)])
+def test_tf32_operator_kernel_equals_plain(dev, n, m):
+    """The operator kernel's embedding and TF32 split, bit for bit."""
+    rng = np.random.default_rng(n + m)
+    gr, gi = _normal(rng, n, m).to(dev), _normal(rng, n, m).to(dev)
+    before = tf32_operator.launches
+    hi, lo = tf32_operator(gr, gi)
+    phi, plo = tf32_operator_plain(gr, gi)
+    torch.cuda.synchronize()
+    assert tf32_operator.launches == before + 1
+    assert torch.equal(hi, phi) and torch.equal(lo, plo)
 
 
 # chip_smoke.py phase 4's sizes: every power of two, 7-smooth sizes (the
@@ -269,6 +317,19 @@ def test_stream_scale_kernel_equals_plain(dev, b, n, tb):
     torch.cuda.synchronize()
     assert stream_scale.launches == before + 1
     assert torch.equal(yr, rr) and torch.equal(yi, ri)
+
+
+@pytest.mark.parametrize("tb", [128, 256, 512])
+def test_stream_scale_splits_tiles_across_the_card(dev, tb):
+    """[8192, 1024]: 64, 32 or 16 of the probe's tiles, fewer than the
+    card's SMs; the grid fills the card whatever tb is; still exact."""
+    rng = np.random.default_rng(tb)
+    xr, xi = _normal(rng, 8192, 1024).to(dev), _normal(rng, 8192, 1024).to(dev)
+    before = stream_scale.launches
+    yr, yi = stream_scale(xr, xi, tb)
+    torch.cuda.synchronize()
+    assert stream_scale.launches == before + 1
+    assert torch.equal(yr, xr * 2) and torch.equal(yi, xi * 2)
 
 
 def test_stream_scale_unaligned_view(dev):
