@@ -2,13 +2,14 @@
 """Where a step of the FM receive chain spends its time on one CUDA card.
 
     python3 benches_torch/probe_fm_step.py [--tag NAME] [--out DIR]
+        [--envelope-blocks 1024,2048,8192]
 
 (``--out`` defaults to the git-ignored ``build/probes``.)
 
 Needs one CUDA card; run from the root of a checkout. The chain is
 ``compile_chain([freq_demod, dc_removal(64, 2), envelope(10, 40)], 256)``
 (BASELINE config #4, as chip_smoke.py phase 14 drives it) at T = 131072
-(blocked envelope) and T = 16384 (unblocked). For each T it times, with
+and T = 16384 (both blocked at ``blocks.filter.ENVELOPE_BLOCK``). For each T it times, with
 CUDA events (3 repetitions, each the median of 10 calls after a quarter
 second of warm-up):
 
@@ -16,7 +17,11 @@ second of warm-up):
 - the same step with the DC removal's prefix sums in float32, the JAX
   package's formulation, in turns with the float64 one (float64,
   float32, float32, float64): what the port's accuracy repair costs;
-- each block's core alone on the input the chain gives it.
+- each block's core alone on the input the chain gives it;
+- only with ``--envelope-blocks``, the measurement that chose
+  ``ENVELOPE_BLOCK``: the step and the envelope block's core with that
+  constant set to each length given, in turns (up the list, then down),
+  beside E1's launch shape (L, Wr, rows).
 
 Then it traces three steps with ``torch.profiler`` (device time per
 kernel name, and the kernels' share of the traced wall time: the
@@ -41,6 +46,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tag", default="probe")
     ap.add_argument("--out", default="build/probes")
+    ap.add_argument("--envelope-blocks", default="",
+                    help="comma-separated envelope block lengths to time "
+                         "the step at (default: none)")
     args = ap.parse_args()
 
     import torch
@@ -50,6 +58,7 @@ def main() -> int:
         print("probe_fm_step: no CUDA card", file=sys.stderr)
         return 1
     from pothoscomms_tpu_torch import BlockRegistry
+    from pothoscomms_tpu_torch.blocks import filter as bfilter
     from pothoscomms_tpu_torch.ops import filter as fops
     from pothoscomms_tpu_torch.parallel.compiler import compile_chain
 
@@ -104,6 +113,7 @@ def main() -> int:
         return [demod, dcr, env]
 
     C = 256
+    sweep = [int(v) for v in args.envelope_blocks.split(",") if v]
     res = {"card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda, "channels": C, "by_T": {}}
     g = torch.Generator(device=dev).manual_seed(0)
@@ -130,7 +140,32 @@ def main() -> int:
         for blk, (c0, core) in zip(blocks, cores):
             r["cores_ms"][type(blk).__name__] = timed(
                 lambda: core(c0, xin), reps=1)
+            mag = xin            # what the envelope's core was given
             _, xin = core(c0, xin)
+        # the envelope block length: the step and E1's share at each
+        default_blk = bfilter.ENVELOPE_BLOCK
+        W = fops.envelope_warmup(10.0, 40.0)
+        by_blk = {}
+        for blk_len in sweep + sweep[::-1]:
+            bfilter.ENVELOPE_BLOCK = blk_len
+            try:
+                blocks_b = fm_blocks()
+                step_b, carry_b = compile_chain(blocks_b, C, device=dev)
+                c0, env_core = blocks_b[2].device_core(C, device=dev)
+                blocked = T % blk_len == 0 and T >= 4 * blk_len \
+                    and W <= 2 * blk_len
+                e = by_blk.setdefault(blk_len, {
+                    "L": blk_len if blocked else T,
+                    "Wr": -(-W // blk_len) * blk_len if blocked else 0,
+                    "rows": C * (T // blk_len if blocked else 1),
+                    "step_ms": [], "envelope_core_ms": []})
+                e["step_ms"] += timed(lambda: step_b(x, carry_b), reps=1)
+                e["envelope_core_ms"] += timed(lambda: env_core(c0, mag),
+                                               reps=1)
+            finally:
+                bfilter.ENVELOPE_BLOCK = default_blk
+        r["by_envelope_block"] = by_blk
+        r["envelope_block"] = default_blk
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -152,7 +187,7 @@ def main() -> int:
         torch.cuda.synchronize()
         r["peak_bytes_one_step"] = torch.cuda.max_memory_allocated()
         res["by_T"][T] = r
-        del x, xin, carry, c, cores
+        del x, xin, mag, carry, c, cores
 
     print(card)
     for T, r in res["by_T"].items():
@@ -160,6 +195,10 @@ def main() -> int:
               f"{r['prefix_sums_ab_ms']}, cores {r['cores_ms']}, device "
               f"busy {r['device_busy_share']:.3f} of {r['trace_wall_us']:.0f}"
               f" us, peak {r['peak_bytes_one_step']} B")
+        for blk_len, e in r["by_envelope_block"].items():
+            print(f"  envelope block {blk_len} (L={e['L']} Wr={e['Wr']} rows="
+                  f"{e['rows']}): step_ms {e['step_ms']}, envelope core "
+                  f"{e['envelope_core_ms']}")
         for k, v in list(r["trace_3_steps"].items())[:8]:
             print(f"  trace {v['share']:.4f} {v['us']:.0f} us  {k[:90]}")
     out = Path(args.out)

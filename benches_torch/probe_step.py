@@ -13,10 +13,15 @@ warm-up):
 - K1 ``cgemm`` and its plain version at the step's product,
   [32768, 1152] x [1152, 1024];
 - K2 ``fft_c2c``, its plain version and cuFFT at 32 Mi samples for
-  n in 256, 1024, 4096 (radix-2) and 384, 1000 (direct DFT).
+  n in 256, 1024, 4096, 384 and 1000;
+- one step of the one-pass chain ``make_fused_chain`` and its
+  ``correction_operand``; K3 ``fir_fft_fused`` at the step's shape,
+  [32768, 1024] + u_w [32768, 64], with and without u_w, and its plain
+  version.
 
-Then it traces three steps with ``torch.profiler`` (device time per
-kernel name) and reads the peak device memory of one step. It prints a
+Then it traces three steps of each chain with ``torch.profiler`` (device
+time per kernel name, K3's share of the one-pass step among them) and
+reads the peak device memory of one step. It prints a
 summary and writes everything to ``<out>/probe_step_<tag>.json``.
 """
 
@@ -47,6 +52,9 @@ def main() -> int:
         return 1
     from pothoscomms_tpu_torch.kernels.cgemm import cgemm, cgemm_plain
     from pothoscomms_tpu_torch.kernels.fft import fft_c2c, fft_c2c_plain
+    from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
+        correction_operand, correction_spectrum, fir_fft_fused,
+        fir_fft_fused_plain, make_fused_chain)
     from pothoscomms_tpu_torch.parallel.chain import (combined_operand,
                                                       fir_fft_chain)
 
@@ -106,18 +114,36 @@ def main() -> int:
                 lambda: torch.fft.fft(torch.view_as_complex(f)), reps=1)}
         del f
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        c = carry
-        for _ in range(3):
-            _, c = run(x, c)
+    fused = make_fused_chain(taps, NB, device=dev)
+    xw = x.reshape(-1, NB, 2)
+    uw = correction_operand(x, carry, NB, K, fused.pp)
+    res["one_pass_step_ms"] = timed(lambda: fused.run(x, carry))
+    res["correction_operand_ms"] = timed(
+        lambda: correction_operand(x, carry, NB, K, fused.pp))
+    res["fir_fft_fused_ms"] = timed(
+        lambda: fir_fft_fused(xw, uw, fused.H, fused.gt))
+    res["fir_fft_fused_without_uw_ms"] = timed(
+        lambda: fir_fft_fused(xw, None, fused.H, fused.gt))
+    gc = correction_spectrum(fused.gt, NB)  # built once, outside the time
+    res["fir_fft_fused_plain_ms"] = timed(
+        lambda: fir_fft_fused_plain(xw, uw, fused.H, fused.gt, gc), reps=1)
+    del xw, uw, gc
+
+    def trace(step):
         torch.cuda.synchronize()
-    dev_us = {e.key: e.device_time_total for e in prof.key_averages()
-              if e.device_time_total > 0}
-    total = sum(dev_us.values())
-    res["trace_3_steps"] = {
-        k: {"us": v, "share": v / total}
-        for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            c = carry
+            for _ in range(3):
+                _, c = step(x, c)
+            torch.cuda.synchronize()
+        dev_us = {e.key: e.device_time_total for e in prof.key_averages()
+                  if e.device_time_total > 0}
+        total = sum(dev_us.values())
+        return {k: {"us": v, "share": v / total}
+                for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])}
+
+    res["trace_3_steps"] = trace(run)
+    res["trace_3_one_pass_steps"] = trace(fused.run)
     torch.cuda.reset_peak_memory_stats()
     run(x, carry)
     torch.cuda.synchronize()
@@ -125,12 +151,16 @@ def main() -> int:
 
     print(card)
     for key in ("step_ms", "combined_operand_ms", "cgemm_ms",
-                "cgemm_plain_ms"):
+                "cgemm_plain_ms", "one_pass_step_ms",
+                "correction_operand_ms", "fir_fft_fused_ms",
+                "fir_fft_fused_without_uw_ms", "fir_fft_fused_plain_ms"):
         print(f"{key}: {res[key]}")
     for n, r in res["fft"].items():
         print(f"fft n={n}: {r}")
     for k, v in list(res["trace_3_steps"].items())[:6]:
         print(f"trace {v['share']:.4f} {v['us']:.0f} us  {k}")
+    for k, v in list(res["trace_3_one_pass_steps"].items())[:6]:
+        print(f"one-pass trace {v['share']:.4f} {v['us']:.0f} us  {k}")
     print(f"peak_bytes_one_step: {res['peak_bytes_one_step']}")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

@@ -40,11 +40,14 @@ Phases, one or more lines each:
      torch.profiler where it kept every event and read no less than the
      bound, else "not measured";
   8. K3 (fir_fft_fused) against its plain version at [32768, 1024] with
-     u_w [32768, 64];
+     u_w [32768, 64] and the chain's gt [64, 64], and without u_w;
   9. path "one_pass", the one-pass chain make_fused_chain at the same
      width for three chained steps: the float64 oracle, the combined
-     step's spectra, the carry, K3's launches, and the step's time
-     against the combined step's;
+     step's spectra, the carry, K3's launches; K3's time with and without
+     u_w (CUDA events, and on the card by torch.profiler), the step's
+     time against the combined step's and, for information, the same
+     step composed of library calls (cuFFT, the H multiply, one complex64
+     torch.matmul for u_w Gc);
  10. path "block_api": feeder -> /comms/fir_filter (64 complex taps) ->
      /comms/fft (1024) -> collector on Topology(device="cuda:0") with the
      default fuse_threshold, fed 2 x 2^25 samples plus 3*1024+17: the
@@ -60,13 +63,23 @@ Phases, one or more lines each:
      layout_move A-D at [4096, 1024]; ms and GB/s per mode beside its
      one-call permute and P1's), then each mode equal to its plain
      version and to the probe's numpy oracle on a host copy, bit for bit;
- 13. E1 (envelope_rows) against its plain version at [256, 131072]
-     blocked (L = Wr = 8192, attack 10, release 40), [256, 16384]
-     unblocked and [1, 2^24] blocked, rtol 1e-5 / atol 1e-6; both timed at
-     the first shape;
+ 13. E1 (envelope_rows) against its plain version, rtol 1e-5 / atol 1e-6
+     and bit for bit, at every shape that phases 14 and 15 launch it at,
+     derived from the envelope block's own rule: [256, 131072] and
+     [256, 16384] blocked at L = Wr = ENVELOPE_BLOCK and [256, 3000]
+     unblocked (attack 10, release 40: the FM chain), [1, 2^24] blocked
+     and the [1, 17] drain (attack 4, release 16: the FM block API); and
+     at two shapes kept from before the redesign, [256, 131072] at
+     L = Wr = 8192 and [256, 16384] unblocked. Every case timed, by CUDA
+     events and on the card, the plain version at the first. Phases 14
+     and 15 note the shape of every E1 launch they make: the FM chain's
+     must be exactly the first three, the block API's must include the
+     pull's, and a shape not foreseen here (another drain length) is
+     held against the plain version there;
  14. path "fm_chain": compile_chain([freq_demod, dc_removal(64, 2),
-     envelope(10, 40)], 256) at T = 131072 (blocked envelope) for three
-     chained steps, then two at T = 16384 (unblocked): a phase random walk
+     envelope(10, 40)], 256) at T = 131072 for three chained steps, two
+     at T = 16384 (both blocked envelopes) and two at T = 3000 (not whole
+     blocks: the unblocked scan): a phase random walk
      with a carrier offset; channels 0 and 255 of step 2 against a
      float64 numpy oracle seeded with step 1's tail (atol 2e-3), every
      step against the same chain on E1's plain version, two half-steps
@@ -157,7 +170,7 @@ def main() -> int:
     from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
         fir_fft_fused, fir_fft_fused_plain, make_fused_chain)
     from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
-        fused_consts_from_numpy)
+        correction_spectrum, fused_consts_from_numpy)
     from pothoscomms_tpu_torch.parallel.chain import (
         carry_from_numpy, combined_fir_fft_operators, combined_operand,
         fir_fft_chain, fir_multichannel, operators_from_numpy,
@@ -533,15 +546,16 @@ def main() -> int:
     run3 = make_fused_chain(taps, NB, device=dev)
     x8, uw8 = on_card(normal(C * T // NB, NB, 2)), on_card(normal(C * T // NB,
                                                                   64, 2))
-    got = fir_fft_fused(x8, uw8, run3.H, run3.gcr, run3.gci)
-    ref = fir_fft_fused_plain(x8, uw8, run3.H, run3.gcr, run3.gci)
-    got_nc = fir_fft_fused(x8, None, run3.H, run3.gcr, run3.gci)
-    ref_nc = fir_fft_fused_plain(x8, None, run3.H, run3.gcr, run3.gci)
+    got = fir_fft_fused(x8, uw8, run3.H, run3.gt)
+    ref = fir_fft_fused_plain(x8, uw8, run3.H, run3.gt)
+    got_nc = fir_fft_fused(x8, None, run3.H, run3.gt)
+    ref_nc = fir_fft_fused_plain(x8, None, run3.H, run3.gt)
     torch.cuda.synchronize()
     k3_abs, k3_rel = errs(got, ref)
     d_nc, rel_nc = errs(got_nc, ref_nc)
     k3_abs = max(k3_abs, d_nc)
-    print(f"[8] fir_fft_fused [{C * T // NB},{NB}] + u_w [{C * T // NB},64]: "
+    print(f"[8] fir_fft_fused [{C * T // NB},{NB}] + u_w [{C * T // NB},64], "
+          f"gt {list(run3.gt.shape[:2])}: "
           f"max|d| {k3_abs:.3e}, /max|plain| {k3_rel:.3e}; without u_w "
           f"{rel_nc:.3e} (limit 1e-5)")
     check(k3_rel < 1e-5 and rel_nc < 1e-5,
@@ -582,21 +596,55 @@ def main() -> int:
         print(f"[9] step 2 channel {ch} vs float64 numpy oracle: "
               f"/max|spectrum| {rel:.3e} (limit 1e-4)")
         check(rel < 1e-4, f"one-pass channel {ch} disagrees with the oracle")
-    k3_ms = median_ms(lambda: fir_fft_fused(x8, uw8, run3.H, run3.gcr,
-                                            run3.gci))
+    k3_ms = median_ms(lambda: fir_fft_fused(x8, uw8, run3.H, run3.gt))
+    # the plain version's Gc planes are built once, outside its time
+    gc8 = correction_spectrum(run3.gt, NB)
     k3_plain_ms = median_ms(lambda: fir_fft_fused_plain(
-        x8, uw8, run3.H, run3.gcr, run3.gci))
-    k3_nc_ms = median_ms(lambda: fir_fft_fused(x8, None, run3.H, run3.gcr,
-                                               run3.gci))
+        x8, uw8, run3.H, run3.gt, gc8))
+    k3_nc_ms = median_ms(lambda: fir_fft_fused(x8, None, run3.H, run3.gt))
     one_pass_ms = median_ms(lambda: run3.run(x0, carry0))
     combined_ms = median_ms(lambda: run(x0, carry0))
+    # K3's bound: the bytes of x, u_w, H, gt and y, and the operations of
+    # the function in its cheapest form: x's FFT, the pp S products of
+    # c_w = u_w gt, c_w's FFT without the first pass (a copy when S <=
+    # n / 16), the H product and the sum
+    rows3, pp3, s3 = x8.shape[0], run3.gt.shape[0], run3.gt.shape[1]
+    k3_bytes = 4 * (2 * rows3 * NB * 2 + rows3 * pp3 * 2 + NB * 2
+                    + pp3 * s3 * 2)
+    k3_bound = bound(k3_bytes, rows3 * (
+        5 * NB * np.log2(NB) + 8 * pp3 * s3 + 5 * NB * (np.log2(NB) - 4)
+        + 8 * NB))
+    k3_nc_bound = bound(k3_bytes - 4 * rows3 * pp3 * 2,
+                        rows3 * (5 * NB * np.log2(NB) + 6 * NB))
+    k3_device_ms = device_ms(fir_fft_fused, [(x8, uw8, run3.H, run3.gt)],
+                             per_call=1, floor_ms=k3_bound[0])
+    k3_nc_device_ms = device_ms(fir_fft_fused,
+                                [(x8, None, run3.H, run3.gt)], per_call=1,
+                                floor_ms=k3_nc_bound[0])
+    # for information: the same step composed of library calls; no single
+    # call computes it, so K3's library_ms stays null
+    h_c = torch.view_as_complex(run3.H)
+    gc_c = torch.complex(*gc8)
+    x8_c, uw8_c = torch.view_as_complex(x8), torch.view_as_complex(uw8)
+    k3_composed_ms = median_ms(
+        lambda: torch.fft.fft(x8_c) * h_c + torch.matmul(uw8_c, gc_c))
+    _, rel_c = errs(torch.view_as_real(
+        torch.fft.fft(x8_c) * h_c + torch.matmul(uw8_c, gc_c)), ref)
+    check(rel_c < 1e-5, "the library composition disagrees with K3's plain "
+                        "version")
     print(f"[9] on {card}: fir_fft_fused [{C * T // NB},{NB}] {k3_ms:.3f} ms "
-          f"({k3_nc_ms:.3f} ms without u_w), plain (DFT matmuls + cuBLAS) "
-          f"{k3_plain_ms:.3f} ms")
+          f"({f4(k3_device_ms)} on the card; bound {k3_bound[0]:.3f} ms by "
+          f"{k3_bound[1]}), {k3_nc_ms:.3f} ms without u_w "
+          f"({f4(k3_nc_device_ms)} on the card; bound {k3_nc_bound[0]:.3f} "
+          f"ms by {k3_nc_bound[1]}), plain (DFT matmuls + cuBLAS) "
+          f"{k3_plain_ms:.3f} ms; composed of library calls (cuFFT, * H, "
+          f"one complex64 matmul) {k3_composed_ms:.3f} ms "
+          f"(/max|plain| {rel_c:.3e})")
     print(f"[9] on {card}: one-pass step {one_pass_ms:.3f} ms "
           f"({C * T / one_pass_ms / 1e3:.1f} Msamples/s), combined step "
           f"{combined_ms:.3f} ms")
     del x8, uw8, got, ref, got_nc, ref_nc, specs3, carries3
+    del x8_c, uw8_c, gc_c, gc8
 
     # -- 10. path "block_api": FIR -> FFT through Topology(device) -------
     from pothoscomms_tpu_torch.core import fusion
@@ -771,13 +819,53 @@ def main() -> int:
     # -- 13. E1 against its plain version ---------------------------------
     from pothoscomms_tpu_torch.ops import filter as fops
 
-    ga, gr = np.float32(np.exp(-1 / 10.0)), np.float32(np.exp(-1 / 40.0))
-    wr = -(-fops.envelope_warmup(10.0, 40.0) // 8192) * 8192
-    e1_abs, e1_times = 0.0, {}
-    e1_cases = (("[256,131072] blocked", 256, 131072, 8192, wr),
-                ("[256,16384] unblocked", 256, 16384, 16384, 0),
-                ("[1,2^24] blocked", 1, 1 << 24, 8192, wr))
-    for label, p13, t13, l13, w13 in e1_cases:
+    from pothoscomms_tpu_torch.blocks.filter import ENVELOPE_BLOCK
+
+    def e1_launch(p, t, attack, release):
+        """(P, T, L, Wr, ga, gr) of the E1 launch that the envelope block's
+        fused core makes for [p, t] magnitudes (blocks/filter.py
+        ``device_core``): blocked at ENVELOPE_BLOCK when t is at least
+        four whole blocks and the warm-up at most two, else one row a
+        channel."""
+        ga, gr = (float(np.float32(np.exp(-1.0 / v)))
+                  for v in (attack, release))
+        w = fops.envelope_warmup(attack, release)
+        blk = ENVELOPE_BLOCK
+        if t % blk == 0 and t >= 4 * blk and w <= 2 * blk:
+            return p, t, blk, -(-w // blk) * blk, ga, gr
+        return p, t, t, 0, ga, gr
+
+    TU = 3000  # phase 14's third length: not whole blocks, so unblocked
+    # the shapes that the paths of phases 14 and 15 launch, then two kept
+    # from before the redesign (the block length the JAX package takes,
+    # and a long unblocked row); the first is the FM chain's at T = 131072
+    e1_cases = [
+        ("fm_chain T=131072", e1_launch(256, 131072, 10.0, 40.0)),
+        ("fm_chain T=16384", e1_launch(256, 16384, 10.0, 40.0)),
+        (f"fm_chain T={TU}", e1_launch(256, TU, 10.0, 40.0)),
+        ("fm_block_api pull", e1_launch(1, 1 << 24, 4.0, 16.0)),
+        ("fm_block_api drain", e1_launch(1, 17, 4.0, 16.0)),
+        ("kept: blocked at 8192",
+         (256, 131072, 8192, 8192) + e1_launch(1, 1, 10.0, 40.0)[4:]),
+        ("kept: unblocked",
+         (256, 16384, 16384, 0) + e1_launch(1, 1, 10.0, 40.0)[4:])]
+    check(e1_cases[0][1][2:4] == (ENVELOPE_BLOCK, ENVELOPE_BLOCK)
+          and e1_cases[1][1][2] == ENVELOPE_BLOCK
+          and e1_cases[2][1][2:4] == (TU, 0)
+          and e1_cases[3][1][2] == ENVELOPE_BLOCK,
+          f"the envelope core's blocking is not the one expected: "
+          f"{[c[1][:4] for c in e1_cases[:4]]}")
+    e1_abs, e1_times, e1_device, e1_held = 0.0, {}, {}, {}
+    e1_bound = bound(4 * (2 * 256 * 131072 + 2 * 256), 4 * 256 * 131072)
+
+    def hold_e1(label, shape, plain_time=False):
+        """E1 at ``shape`` = (P, T, L, Wr, ga, gr) against its plain
+        version on the same random magnitudes: rtol 1e-5 / atol 1e-6 and
+        bit for bit; then its time. Returns the plain version's ms when
+        asked for it."""
+        nonlocal e1_abs
+        p13, t13, l13, w13 = shape[:4]
+        ga, gr = np.float32(shape[4]), np.float32(shape[5])
         mag = torch.from_numpy(np.abs(normal(p13, t13))).to(dev)
         env0 = torch.from_numpy(np.abs(normal(p13))).to(dev)
         y, ef = envelope_rows(mag, env0, ga, gr, l13, w13)
@@ -786,21 +874,71 @@ def main() -> int:
         d = max((y - yp).abs().max().item(), (ef - efp).abs().max().item())
         ok = bool(torch.allclose(y, yp, rtol=1e-5, atol=1e-6)
                   and torch.allclose(ef, efp, rtol=1e-5, atol=1e-6))
+        same = torch.equal(y, yp) and torch.equal(ef, efp)
         e1_abs = max(e1_abs, d)
-        print(f"[13] envelope_rows {label} (L={l13}, Wr={w13}): max|d| "
-              f"{d:.3e} (rtol 1e-5, atol 1e-6): {ok}")
-        check(ok, f"envelope_rows {label} disagrees with its plain version")
+        print(f"[13] envelope_rows {label} [{p13},{t13}] (L={l13}, "
+              f"Wr={w13}, gains {ga:.6f} / {gr:.6f}): max|d| {d:.3e} "
+              f"(rtol 1e-5, atol 1e-6): {ok}; bit for bit: {same}")
+        check(ok and same,
+              f"envelope_rows {label} disagrees with its plain version")
+        e1_held[shape] = label
         e1_times[label] = median_ms(lambda: envelope_rows(mag, env0, ga, gr,
                                                           l13, w13))
-        if t13 == 131072:
-            e1_plain_ms = median_ms(lambda: envelope_rows_plain(
+        # each case's own bytes screen its reading from the profiler
+        e1_device[label] = device_ms(
+            envelope_rows, [(mag, env0, ga, gr, l13, w13)], per_call=1,
+            floor_ms=bound(4 * (2 * p13 * t13 + 2 * p13), 0)[0])
+        if plain_time:
+            return median_ms(lambda: envelope_rows_plain(
                 mag, env0, ga, gr, l13, w13), reps=2, warmup_s=0.0)
+        return None
+
+    for i, (label, shape) in enumerate(e1_cases):
+        t_plain = hold_e1(label, shape, plain_time=i == 0)
+        if i == 0:
+            e1_plain_ms = t_plain
     e1_ms = e1_times[e1_cases[0][0]]
-    times = ", ".join(f"{k} {v:.3f} ms" for k, v in e1_times.items())
-    print(f"[13] on {card}: envelope_rows {times}; at [256,131072] blocked "
-          f"against plain (a Python loop of {wr + 8192} steps) "
+    e1_device_ms = e1_device[e1_cases[0][0]]
+
+    times = ", ".join(f"{k} {v:.3f} ms ({f4(e1_device[k])} on the card)"
+                      for k, v in e1_times.items())
+    print(f"[13] on {card}: envelope_rows {times}; "
+          f"{e1_cases[0][0]}: bound {e1_bound[0]:.3f} ms by {e1_bound[1]}, "
+          f"plain (a Python loop of {sum(e1_cases[0][1][2:4])} steps) "
           f"{e1_plain_ms:.3f} ms")
-    del mag, env0, y, yp
+
+    e1_launched = []
+
+    @contextlib.contextmanager
+    def recorded_envelope():
+        """Notes (P, T, L, Wr, ga, gr) of every E1 call made through
+        ops/filter while a path is driven; the call itself is E1's."""
+        saved = fops.envelope_rows
+
+        def noting(mag, env0, ga, gr, L, Wr):
+            e1_launched.append((mag.shape[0], mag.shape[1], int(L), int(Wr),
+                                float(ga), float(gr)))
+            return saved(mag, env0, ga, gr, L, Wr)
+
+        fops.envelope_rows = noting
+        try:
+            yield
+        finally:
+            fops.envelope_rows = saved
+
+    def hold_e1_launches(path, since):
+        """Every E1 shape that ``path`` launched (``e1_launched[since:]``)
+        must have been held against the plain version: one that phase 13
+        did not foresee is held now."""
+        shapes = sorted(set(e1_launched[since:]))
+        for shape in shapes:
+            if shape not in e1_held:
+                hold_e1(f"{path} launch", shape)
+        print(f"[13] {path} launched E1 at "
+              f"{[(s[:4], e1_held[s]) for s in shapes]}: each held against "
+              f"its plain version")
+        check(bool(shapes), f"{path} made no E1 call through ops/filter")
+
 
     # -- 14. path "fm_chain": compile_chain on the card -------------------
     CF, TF, DF, CASC, ATT, REL = 256, 131072, 64, 2, 10.0, 40.0
@@ -860,28 +998,45 @@ def main() -> int:
     xs16 = fm_steps(CF, TS, 2, 15)
     step16, carry16 = compile_chain(fm_blocks(DF, CASC, ATT, REL), CF,
                                     device=dev)
+    xsu = fm_steps(CF, TU, 2, 16)
+    stepu, carryu = compile_chain(fm_blocks(DF, CASC, ATT, REL), CF,
+                                  device=dev)
     torch.cuda.synchronize()
     zero_counts()
-    carries_fm, ys_fm = [carry_fm], []
-    for x in xf:
-        y, c = step_fm(x, carries_fm[-1])
-        ys_fm.append(y)
-        carries_fm.append(c)
-    carries16, ys16 = [carry16], []
-    for x in xs16:
-        y, c = step16(x, carries16[-1])
-        ys16.append(y)
-        carries16.append(c)
+    with recorded_envelope():
+        carries_fm, ys_fm = [carry_fm], []
+        for x in xf:
+            y, c = step_fm(x, carries_fm[-1])
+            ys_fm.append(y)
+            carries_fm.append(c)
+        carries16, ys16 = [carry16], []
+        for x in xs16:
+            y, c = step16(x, carries16[-1])
+            ys16.append(y)
+            carries16.append(c)
+        carriesu, ysu = [carryu], []
+        for x in xsu:
+            y, c = stepu(x, carriesu[-1])
+            ysu.append(y)
+            carriesu.append(c)
     launches_fm = read_counts()
-    print(f"[14] fm_chain C={CF} T={TF} (3 steps) and T={TS} (2 steps), "
-          f"D={DF} x{CASC}, attack {ATT} release {REL}: launches "
-          f"{launches_fm}")
-    check(launches_fm["envelope"] >= 5,
+    print(f"[14] fm_chain C={CF} T={TF} (3 steps), T={TS} (2 steps) and "
+          f"T={TU} (2 steps, unblocked), D={DF} x{CASC}, attack {ATT} "
+          f"release {REL}: launches {launches_fm}")
+    check(launches_fm["envelope"] >= 7,
           "the FM chain did not launch envelope_rows each step")
+    check(len(e1_launched) == launches_fm["envelope"],
+          f"{len(e1_launched)} E1 calls noted, {launches_fm['envelope']} "
+          f"launches counted")
+    hold_e1_launches("fm_chain", 0)
+    check(set(e1_launched) == {c[1] for c in e1_cases[:3]},
+          f"fm_chain launched E1 at {sorted(set(e1_launched))}, phase 13 "
+          f"expected {[c[1] for c in e1_cases[:3]]}")
     fm_err = 0.0
     for label, xs_, ys_, cs_, stp in (
             (f"T={TF}", xf, ys_fm, carries_fm, step_fm),
-            (f"T={TS}", xs16, ys16, carries16, step16)):
+            (f"T={TS}", xs16, ys16, carries16, step16),
+            (f"T={TU}", xsu, ysu, carriesu, stepu)):
         for s, x in enumerate(xs_):
             check(ys_[s].shape == x.shape[:2]
                   and bool(torch.isfinite(ys_[s]).all()),
@@ -928,7 +1083,8 @@ def main() -> int:
           f"{fm_bytes / fm_ms / 1e6:.1f} GB/s of input and output against "
           f"P1's best {p1_best:.1f}); T={TS} {fm16_ms:.3f} ms "
           f"({CF * TS / fm16_ms / 1e3:.1f} Msamples/s)")
-    del xf, xs16, ys_fm, ys16, carries_fm, carries16, parts
+    del xf, xs16, xsu, ys_fm, ys16, ysu, carries_fm, carries16, carriesu
+    del parts
 
     # -- 15. path "fm_block_api": the FM blocks on Topology(device) -------
     DB, CASCB, ATTB, RELB = 32, 2, 4.0, 16.0
@@ -979,7 +1135,9 @@ def main() -> int:
         return sink.get_buffer(), seg, secs
 
     zero_counts()
-    out15, seg15, secs15 = fm_block_run()
+    n_noted = len(e1_launched)
+    with recorded_envelope():
+        out15, seg15, secs15 = fm_block_run()
     launches15 = read_counts()
     print(f"[15] block API freq_demod -> dc_removal({DB}, {CASCB}) -> "
           f"envelope({ATTB}, {RELB}) on {dev}, {n_fm} samples: launches "
@@ -989,6 +1147,12 @@ def main() -> int:
           and seg15.fused_elements >= QB, "the FM segment did not engage")
     check(launches15["envelope"] >= 2, "the FM block path did not launch "
                                        "envelope_rows")
+    check(len(e1_launched) - n_noted == launches15["envelope"],
+          f"{len(e1_launched) - n_noted} E1 calls noted, "
+          f"{launches15['envelope']} launches counted")
+    hold_e1_launches("fm_block_api", n_noted)
+    check(e1_cases[3][1] in e1_launched[n_noted:],
+          f"fm_block_api did not launch E1 at {e1_cases[3][1]}")
     check(out15.shape == (n_fm,) and out15.dtype == np.float32,
           f"FM block path output {out15.shape} {out15.dtype}, expected "
           f"({n_fm},) float32")
@@ -1037,19 +1201,14 @@ def main() -> int:
     par = "pothoscomms_tpu/parallel/pallas_kernels.py"
     # the bound of each kernel at the shape its ms was taken: bytes of its
     # inputs and outputs, and the float32 operations of its function
-    rows3, pp3 = C * T // NB, 64
     bounds = {
         "cgemm": k1_bound,
         "fft_c2c": bound(2 * frames.numel() * 4,
                          5 * frames.shape[0] * NB * np.log2(NB)),
-        "fir_fft_fused": bound(
-            4 * (2 * rows3 * NB * 2 + rows3 * pp3 * 2 + NB * 2
-                 + 2 * pp3 * NB),
-            rows3 * (5 * NB * np.log2(NB) + 6 * NB + 8 * pp3 * NB + 2 * NB)),
+        "fir_fft_fused": k3_bound,
         "stream_scale": bound(4 * 32768 * 1024 * 4, 2 * 32768 * 1024),
         "layout_move": bound(2 * 4096 * 1024 * 4, 0),
-        "envelope": bound(4 * (2 * 256 * 131072 + 2 * 256),
-                          4 * 256 * 131072)}
+        "envelope": e1_bound}
     # name: (source, TPU kernel, max |d|, ms, plain ms, one library call's
     # ms or None where no single PyTorch call computes the function)
     measured = {
@@ -1092,6 +1251,14 @@ def main() -> int:
     # CUDA events around one call also hold the host's enqueue, which
     # weighs on K2 and P2 (~0.2 ms and ~10 us), so their time on the card
     # is given too, as K1's is above
+    kernels[2]["device_ms"] = k3_device_ms
+    kernels[2]["without_uw_ms"] = k3_nc_ms
+    kernels[2]["without_uw_device_ms"] = k3_nc_device_ms
+    kernels[2]["without_uw_bound_ms"] = k3_nc_bound[0]
+    kernels[2]["composed_of_library_calls_ms"] = k3_composed_ms
+    kernels[5]["device_ms"] = e1_device_ms
+    kernels[5]["ms_by_case"] = e1_times
+    kernels[5]["device_ms_by_case"] = e1_device
     kernels[1]["device_ms"] = k2_device_ms
     kernels[1]["library_device_ms"] = k2_cufft_device_ms
     kernels[1]["by_n_at_32Mi_samples"] = k2_by_n

@@ -503,6 +503,13 @@ class DCRemoval(Block):
 # ---------------------------------------------------------------------- #
 # /comms/envelope_detector (reference: filter/EnvelopeDetector.cpp)
 # ---------------------------------------------------------------------- #
+# Samples per row of the fused core's blocked follower (E1 steps W rounded
+# up to a block, plus the block, per row). The JAX block takes 8192, a
+# choice timed on its TPU; this one is the fastest of 1024, 2048 and 8192
+# for the FM chain's step on an H100 (benches_torch/probe_fm_step.py).
+ENVELOPE_BLOCK = 1024
+
+
 @register_block("/comms/envelope_detector", "/blocks/envelope_detector")
 class EnvelopeDetector(Block):
     """Attack/release envelope follower; any real/complex input, float
@@ -602,7 +609,7 @@ class EnvelopeDetector(Block):
         # warm-started W samples early are exact to f32 resolution
         # (ops/filter.envelope_blocked); W is static per taps-epoch.
         W = fops.envelope_warmup(self._attack, self._release)
-        BLK = 8192
+        BLK = ENVELOPE_BLOCK
 
         def step(carry, x):
             if x.dim() == 3:  # planar complex -> magnitude

@@ -7,7 +7,10 @@ It carries both of the JAX package's envelope scans: ``envelope_blocked``
 (``pothoscomms_tpu/ops/filter.py:378-453``). :func:`envelope_rows`
 launches the CUDA kernel for CUDA tensors and uses
 :func:`envelope_rows_plain`, a Python loop over the Wr + L steps, only
-for CPU tensors; any other device raises.
+for CPU tensors; any other device raises. The kernel's time is that of
+one row's chain of Wr + L steps (rows run side by side), so callers that
+may choose L keep it short: the envelope block's fused core takes
+``blocks/filter.ENVELOPE_BLOCK``.
 """
 
 from __future__ import annotations

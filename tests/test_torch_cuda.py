@@ -183,20 +183,31 @@ def test_fft_planar_long_rows_on_card(dev, n, inverse):
     assert np.max(np.abs(g - exp)) / np.max(np.abs(exp)) < 2e-5
 
 
-@pytest.mark.parametrize("b,n,pp,corr", [
-    (37, 1024, 64, True), (37, 1024, 64, False), (1, 1024, 64, True),
-    (4096, 1024, 64, True), (10, 16, 8, True), (6, 2, 256, True)])
-def test_fir_fft_fused_kernel_matches_plain(dev, b, n, pp, corr):
+@pytest.mark.parametrize("b,n,pp,s,corr", [
+    (37, 1024, 64, 64, True), (37, 1024, 64, 64, False),
+    (1, 1024, 64, 64, True), (4096, 1024, 64, 64, True),
+    (10, 16, 8, 8, True), (6, 2, 256, 2, True),
+    # every window length, ragged last blocks, supports at and above the
+    # pruned first pass's n / 16, pp from 0 (no correction) to 256
+    (37, 1024, 63, 63, True), (37, 1024, 1, 1, True),
+    (37, 1024, 256, 256, True), (5, 1024, 256, 65, True),
+    (37, 1024, 0, 1, True), (37, 512, 64, 32, True), (37, 512, 64, 33, True),
+    (70, 256, 64, 16, True), (70, 256, 63, 63, True), (70, 128, 17, 8, True),
+    (70, 128, 64, 128, True), (300, 64, 64, 4, True), (300, 64, 64, 64, True),
+    (300, 32, 8, 2, True), (300, 32, 256, 32, True), (300, 16, 8, 16, True),
+    (300, 8, 1, 8, True), (300, 8, 64, 3, False), (300, 4, 64, 4, True),
+    (300, 2, 1, 1, True)])
+def test_fir_fft_fused_kernel_matches_plain(dev, b, n, pp, s, corr):
     """K3 against its plain version, ragged B (not a multiple of the
-    kernel's four windows per block) and uw=None included."""
-    rng = np.random.default_rng(b * 7 + n + pp)
+    kernel's windows per block) and uw=None included; gt [pp, s]."""
+    rng = np.random.default_rng(b * 7 + n + pp + s)
     x = _normal(rng, b, n, 2).to(dev)
     uw = _normal(rng, b, pp, 2).to(dev) if corr else None
     H = _normal(rng, n, 2).to(dev)
-    gr, gi = _normal(rng, pp, n).to(dev), _normal(rng, pp, n).to(dev)
+    gt = _normal(rng, pp, s, 2).to(dev)
     before = fir_fft_fused.launches
-    got = fir_fft_fused(x, uw, H, gr, gi)
-    ref = fir_fft_fused_plain(x, uw, H, gr, gi)
+    got = fir_fft_fused(x, uw, H, gt)
+    ref = fir_fft_fused_plain(x, uw, H, gt)
     torch.cuda.synchronize()
     assert fir_fft_fused.launches == before + 1
     assert got.shape == (b, n, 2)
@@ -207,22 +218,24 @@ def test_fir_fft_fused_raises_instead_of_falling_back(dev):
     x = torch.zeros(8, 1024, 2, device=dev)
     uw = torch.zeros(8, 64, 2, device=dev)
     H = torch.zeros(1024, 2, device=dev)
-    g = torch.zeros(64, 1024, device=dev)
+    g = torch.zeros(64, 64, 2, device=dev)
     with pytest.raises(ValueError):          # non-contiguous x
         fir_fft_fused(x.transpose(0, 1).contiguous().transpose(0, 1), uw,
-                      H, g, g)
+                      H, g)
     with pytest.raises(ValueError):          # non-contiguous operator
-        fir_fft_fused(x, uw, H, g.t().contiguous().t(), g)
+        fir_fft_fused(x, uw, H, g.transpose(0, 1).contiguous()
+                      .transpose(0, 1))
     with pytest.raises(ValueError):          # n above the kernel's 1024
         x2 = torch.zeros(2, 2048, 2, device=dev)
-        g2 = torch.zeros(64, 2048, device=dev)
-        fir_fft_fused(x2, None, torch.zeros(2048, 2, device=dev), g2, g2)
+        fir_fft_fused(x2, None, torch.zeros(2048, 2, device=dev), g)
     with pytest.raises(ValueError):          # n not a power of two
         x3 = torch.zeros(2, 100, 2, device=dev)
-        g3 = torch.zeros(4, 100, device=dev)
-        fir_fft_fused(x3, None, torch.zeros(100, 2, device=dev), g3, g3)
+        fir_fft_fused(x3, None, torch.zeros(100, 2, device=dev), g)
+    with pytest.raises(ValueError):          # pp above the kernel's 256
+        fir_fft_fused(x, torch.zeros(8, 257, 2, device=dev), H,
+                      torch.zeros(257, 64, 2, device=dev))
     with pytest.raises(ValueError):          # operand on another device
-        fir_fft_fused(x, uw.cpu(), H, g, g)
+        fir_fft_fused(x, uw.cpu(), H, g)
 
 
 def test_fused_chain_on_card_matches_cpu(dev):
@@ -360,7 +373,13 @@ def test_layout_move_kernel_equals_plain(dev, mode, b, n):
 
 @pytest.mark.parametrize("P,T,L,Wr", [
     (4, 65536, 8192, 8192), (3, 4096, 4096, 0), (2, 1000, 1000, 0),
-    (1, 32768, 1024, 2048), (7, 96, 32, 64), (5, 3, 1, 1)])
+    (1, 32768, 1024, 2048), (7, 96, 32, 64), (5, 3, 1, 1),
+    # P * nb below, at and above one warp; Wr off the tile of 32 steps
+    # (aligned: 4 | Wr; scalar: odd Wr), above L, and longer than a
+    # channel's first rows; odd L; a ragged last tile; T = L
+    (256, 16384, 1024, 1024), (3, 8192, 1024, 1000), (33, 4096, 128, 36),
+    (1, 4096, 128, 132), (9, 2079, 99, 198), (2, 4099, 4099, 0),
+    (31, 1001, 143, 77), (1, 36, 36, 0), (40, 640, 20, 8)])
 def test_envelope_kernel_matches_plain(dev, P, T, L, Wr):
     rng = np.random.default_rng(P * T + L)
     mag = torch.from_numpy(np.abs(rng.standard_normal((P, T),
@@ -376,6 +395,26 @@ def test_envelope_kernel_matches_plain(dev, P, T, L, Wr):
                                atol=1e-6)
     np.testing.assert_allclose(e.cpu().numpy(), ep.numpy(), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("L,Wr", [(1024, 1024), (4096, 0), (64, 200)])
+def test_envelope_unaligned_view_equals_plain(dev, L, Wr):
+    """Contiguous views of mag that start 4, 8 and 12 bytes off a 16-byte
+    boundary take the kernel's scalar loads and stores; as every other
+    shape they equal the plain version bit for bit."""
+    rng = np.random.default_rng(L + Wr)
+    P, T = 5, 4096
+    ga, gr = np.float32(np.exp(-1 / 4.0)), np.float32(np.exp(-1 / 16.0))
+    env0 = torch.from_numpy(np.abs(rng.standard_normal(P, dtype=np.float32)))
+    for off in (1, 2, 3):
+        flat = torch.from_numpy(np.abs(rng.standard_normal(
+            P * T + off, dtype=np.float32))).to(dev)
+        mag = flat[off:].view(P, T)
+        assert mag.data_ptr() % 16 == 4 * off and mag.is_contiguous()
+        y, e = envelope_rows(mag, env0.to(dev), ga, gr, L, Wr)
+        yp, ep = envelope_rows_plain(mag, env0.to(dev), ga, gr, L, Wr)
+        torch.cuda.synchronize()
+        assert torch.equal(y, yp) and torch.equal(e, ep)
 
 
 def test_layout_move_unaligned_view(dev):

@@ -1,4 +1,5 @@
-"""The index algebra of K2 (csrc/fft.cu) and P2 (csrc/layout_move.cu) on
+"""The index algebra of K2 (csrc/fft.cu, its passes in csrc/stockham.cuh,
+which K3 runs too) and P2 (csrc/layout_move.cu) on
 the CPU, where the kernels cannot run.
 
 - K2's plan (pothoscomms_tpu_torch.kernels.fft.stockham_plan): for every
@@ -74,7 +75,7 @@ def test_plan_covers_exactly_the_7_smooth_sizes():
                                2401, 3000, 4096])
 def test_plan_block_shape_and_packed_fields(n):
     """128-256 threads a block (several rows for small n), and the int32
-    fields csrc/fft.cu reads (PlanView, fft.cu:56-75) in their places."""
+    fields the kernel reads (PlanView, csrc/stockham.cuh) in their places."""
     plan = kfft.stockham_plan(n, False)
     threads = plan.trow * plan.rows
     assert 128 < threads <= kfft.THREADS
@@ -102,13 +103,13 @@ def test_fastdiv_mirror_divides_exactly():
 
 
 # ------------------------------------------------------------------ #
-# a numpy model of the kernel's passes (fft.cu:288-360)
+# a numpy model of the kernel's passes (stockham.cuh `pass`)
 # ------------------------------------------------------------------ #
 _F = np.float32
 
 
 def _w16(m, inverse):
-    """w16 (fft.cu:92-105): the f32 constants of W_16^m."""
+    """w16 (stockham.cuh): the f32 constants of W_16^m."""
     c, s = _F(np.cos(np.pi * m / 8)), _F(np.sin(np.pi * m / 8))
     return complex(c, s if inverse else -s)
 
@@ -118,17 +119,17 @@ def _rot90(a, inverse):
 
 
 def _dft4(a0, a1, a2, a3, inverse):
-    """dft4 (fft.cu:114-123)."""
+    """dft4 (stockham.cuh)."""
     t0, t1, t2, t3 = a0 + a2, a0 - a2, a1 + a3, _rot90(a1 - a3, inverse)
     return t0 + t2, t1 + t3, t0 - t2, t1 - t3
 
 
 def _butterfly(v, inverse):
-    """The radix-R DFT as fft.cu computes it: 2 and 4 directly, 8 as
-    2 x 4 (:124-138), 16 as 4 x 4 (:139-154), 3, 5, 7 by the odd formula
-    with f32 cos / sin tables (:180-262); the kernel leaves the outputs
-    of 8 and 16 in place, transposed (slot<R>, :155-161), and stores
-    output k from slot k."""
+    """The radix-R DFT as stockham.cuh computes it: 2 and 4 directly, 8
+    as 2 x 4 (dft8), 16 as 4 x 4 (dft16), 3, 5, 7 by the odd formula with
+    f32 cos / sin tables (dft_odd); the kernel leaves the outputs of 8
+    and 16 in place, transposed (slot<R>), and stores output k from slot
+    k."""
     r_ = len(v)
     if r_ == 1:
         return v
@@ -290,10 +291,10 @@ def test_p2_tile_accesses_hit_32_banks(n, mode):
 
 def _k2_accesses(n):
     """Every warp access of K2's exchanges: thread t of local row
-    lrow = tid / trow (fft.cu:370) takes butterflies j = t, t + trow, ..
-    (:309), reads row * n + j + r n/R (:316-319) in every pass but the
-    first and writes row * n + (j / ns) ns R + j mod ns + r ns
-    (:343-346) in every pass but the last. Yields (kind, addresses)."""
+    lrow = tid / trow (fft.cu stockham_kernel) takes butterflies j = t,
+    t + trow, .. (stockham.cuh `pass`), reads row * n + j + r n/R in
+    every pass but the first and writes row * n + (j / ns) ns R + j mod ns
+    + r ns in every pass but the last. Yields (kind, addresses)."""
     plan = kfft.stockham_plan(n, False)
     threads = plan.trow * plan.rows
     last = len(plan.radices) - 1
@@ -329,7 +330,7 @@ def test_k2_exchanges_hit_32_banks(n):
 @pytest.mark.parametrize("n", [2 ** k for k in range(2, 13)])
 def test_k2_precomputed_offsets_equal_the_full_swizzle(n):
     """For a power-of-two n, swz(first address) ^ the XOR of the plan's
-    basis offsets over r's set bits (fft.cu xor_basis, in pass()) is the
+    basis offsets over r's set bits (stockham.cuh xor_basis, in pass()) is the
     swizzle of each sample's own address."""
     plan = kfft.stockham_plan(n, False)
     ints = plan.ints.view(np.uint32)
@@ -371,7 +372,7 @@ def test_k2_padded_exchanges_stay_inside_their_plane(n):
 
 
 # Words in the busiest bank of each warp access of K2's padded exchanges
-# (fft.cu:325 reads, :354 writes, through smem::pad): {words: accesses}.
+# (stockham.cuh `pass`, through smem::pad): {words: accesses}.
 # Up to 3 words share a bank (2187's and 100's writes); on average an
 # access takes 1.2-1.9 times a conflict-free one.
 PADDED_BANKS = {

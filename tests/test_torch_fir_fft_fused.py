@@ -9,7 +9,12 @@ step at 2e-5 of max |spectrum| (float32 FFT and 64-term sums in another
 order); chains at 1e-4 of max |spectrum| (the JAX chain contract,
 tests/test_tpu_lane.py) against the JAX chain, the float64
 convolve-then-FFT oracle and the port's combined step; carries exact;
-constants bit for bit; the split FFT at 2e-5 as the JAX FFT tests.
+H bit for bit; the time-domain correction operator gt, which the port
+recovers from the JAX Gc by a float64 inverse DFT, within 1e-6 of max
+|gt| of the one built from the taps, and its spectrum within 1e-6 of max
+|Gc| of the JAX Gc (float32 roundings of Gc and of the taps), and with
+taps that float32 holds exactly within one float32 step of it; the split
+FFT at 2e-5 as the JAX FFT tests.
 """
 
 import numpy as np
@@ -58,10 +63,10 @@ def test_step_matches_jax_pallas_kernel(with_corr):
         interpret=True)
     exp = np.stack([np.asarray(yr).reshape(B, N),
                     np.asarray(yi).reshape(B, N)], -1)
-    H, (gcr, gci) = ff.fused_consts_from_numpy(consts, device="cpu")
+    H, gt = ff.fused_consts_from_numpy(consts, device="cpu")
     got = ff.fir_fft_fused(torch.from_numpy(x),
                            torch.from_numpy(uw) if with_corr else None,
-                           H, gcr, gci)
+                           H, gt)
     assert got.shape == (B, N, 2)
     assert _rel_err(got, exp) < 2e-5
 
@@ -69,13 +74,54 @@ def test_step_matches_jax_pallas_kernel(with_corr):
 @pytest.mark.parametrize("k", [2, 17, 64, 65])
 def test_consts_from_numpy_equal_fused_chain_consts(k):
     taps = _taps(np.random.default_rng(41), k)
-    H, (gcr, gci) = ff.fused_consts_from_numpy(_jax_consts(taps),
-                                               device="cpu")
-    H2, (gcr2, gci2) = ff.fused_chain_consts(taps, 1024, 64)
-    assert H.dtype == gcr.dtype == torch.float32
-    assert H.shape == (1024, 2) and gcr.shape == gci.shape == (64, 1024)
-    for a, b in ((H, H2), (gcr, gcr2), (gci, gci2)):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    consts = _jax_consts(taps)
+    H, gt = ff.fused_consts_from_numpy(consts, device="cpu")
+    H2, gt2 = ff.fused_chain_consts(taps, 1024, 64)
+    assert H.dtype == gt.dtype == torch.float32
+    assert H.shape == (1024, 2) and gt.shape == gt2.shape == (64, 64, 2)
+    np.testing.assert_array_equal(H.numpy(), H2.numpy())
+    assert np.max(np.abs(gt.numpy() - gt2.numpy())) \
+        < 1e-6 * np.max(np.abs(gt2.numpy()))
+    # the JAX Gc, its m-major columns undone (pallas_kernels.py:396)
+    jgc = [np.asarray(a).reshape(64, 8, 128).transpose(0, 2, 1)
+           .reshape(64, 1024) for a in consts[4]]
+    for planes in (ff.correction_spectrum(gt, 1024),
+                   ff.correction_spectrum(gt2, 1024)):
+        for got, exp in zip(planes, jgc):
+            assert got.shape == (64, 1024) and got.dtype == torch.float32
+            assert np.max(np.abs(got.numpy() - exp)) \
+                < 1e-6 * np.max(np.abs(exp))
+
+
+@pytest.mark.parametrize("k", [2, 17, 64, 65])
+def test_gc_rebuilt_from_gt_is_the_jax_gc_to_one_float32_step(k):
+    """With taps that float32 holds exactly, gt from ``fused_chain_consts``
+    is exact, and its spectrum is the Gc of the JAX ``_fused_chain_consts``
+    and of ``parallel.chain.circ_correction_operators`` (flipped and
+    padded at the front to pp, which is bit for bit the JAX Gc). The two
+    float64 sums run in different orders with twiddles from different
+    routines, so a value that falls within ~1e-16 of a float32 rounding
+    boundary may land on its other side: every element within one float32
+    step of the JAX value, and no more than one in 5000 not equal."""
+    taps = _taps(np.random.default_rng(41), k).astype(np.complex64) \
+        .astype(np.complex128)
+    consts = _jax_consts(taps)
+    jgc = [np.asarray(a).reshape(64, 8, 128).transpose(0, 2, 1)
+           .reshape(64, 1024) for a in consts[4]]
+    _, gc = chain.circ_correction_operators(taps, 1024)
+    _, gt = ff.fused_chain_consts(taps, 1024, 64)
+    gt64 = np.zeros((64, 64), np.complex128)
+    for m in range(1, k):
+        gt64[64 - m, :k - m] = taps[m:]
+    np.testing.assert_array_equal(
+        gt.numpy(), np.stack([gt64.real, gt64.imag], -1).astype(np.float32))
+    for got, exp, par in zip(ff.correction_spectrum(gt, 1024), jgc, gc):
+        np.testing.assert_array_equal(
+            torch.cat([par.new_zeros(64 - (k - 1), 1024), par.flip(0)])
+            .numpy(), exp)
+        got = got.numpy()
+        assert np.all(np.abs(got - exp) <= np.spacing(np.abs(exp)))
+        assert np.count_nonzero(got != exp) * 5000 <= got.size
 
 
 def _oracle(x_steps, taps, nb):
@@ -94,7 +140,7 @@ def test_chain_matches_jax_pallas_chain_oracle_and_combined_step(k):
     taps = _taps(rng, k)
     run = ff.make_fused_chain(taps, NB, device="cpu")
     assert isinstance(run, torch.nn.Module)
-    assert {n for n, _ in run.named_buffers()} == {"H", "gcr", "gci"}
+    assert {n for n, _ in run.named_buffers()} == {"H", "gt"}
     jrun = jpk.make_fused_pallas_chain(taps, NB, interpret=True)
     pp = min(128, NB)
     gr, gi = chain.stack_combined_operators(
@@ -135,14 +181,15 @@ def test_plain_version_is_fft_times_h_plus_correction():
     rng = np.random.default_rng(44)
     x, uw = torch.from_numpy(_x(rng, 3, 16)), torch.from_numpy(_x(rng, 3, 4))
     H = torch.from_numpy(_x(rng, 16))
-    gr = torch.from_numpy(rng.normal(size=(4, 16)).astype(np.float32))
-    gi = torch.from_numpy(rng.normal(size=(4, 16)).astype(np.float32))
+    gt = torch.from_numpy(_x(rng, 4, 5))
     xc = x[..., 0].double().numpy() + 1j * x[..., 1].double().numpy()
     uc = uw[..., 0].double().numpy() + 1j * uw[..., 1].double().numpy()
+    gc = np.fft.fft(gt[..., 0].double().numpy()
+                    + 1j * gt[..., 1].double().numpy(), 16, axis=-1)
     exp = np.fft.fft(xc, axis=-1) * (H[:, 0].double().numpy()
                                      + 1j * H[:, 1].double().numpy()) \
-        + uc @ (gr.double().numpy() + 1j * gi.double().numpy())
-    got = ff.fir_fft_fused_plain(x, uw, H, gr, gi).numpy()
+        + uc @ gc
+    got = ff.fir_fft_fused_plain(x, uw, H, gt).numpy()
     assert _rel_err(got[..., 0] + 1j * got[..., 1], exp) < 2e-6
 
 
@@ -150,22 +197,22 @@ def test_wrapper_never_counts_cpu_and_refuses_bad_operands():
     x = torch.zeros(4, 16, 2)
     uw = torch.zeros(4, 8, 2)
     H = torch.zeros(16, 2)
-    g = torch.zeros(8, 16)
+    g = torch.zeros(8, 8, 2)
     before = ff.fir_fft_fused.launches
-    ff.fir_fft_fused(x, uw, H, g, g)
+    ff.fir_fft_fused(x, uw, H, g)
     ff.make_fused_chain(np.ones(4) / 4, 1024, device="cpu").run(
         torch.zeros(1, 1024, 2), torch.zeros(1, 3, 2))
     assert ff.fir_fft_fused.launches == before
     with pytest.raises(ValueError):        # no kernel and no plain path
-        ff.fir_fft_fused(*(t.to("meta") for t in (x, uw, H, g, g)))
+        ff.fir_fft_fused(*(t.to("meta") for t in (x, uw, H, g)))
     with pytest.raises(TypeError):
-        ff.fir_fft_fused(x.double(), uw, H, g, g)
+        ff.fir_fft_fused(x.double(), uw, H, g)
     with pytest.raises(ValueError):        # H of another length
-        ff.fir_fft_fused(x, uw, torch.zeros(8, 2), g, g)
+        ff.fir_fft_fused(x, uw, torch.zeros(8, 2), g)
     with pytest.raises(ValueError):        # uw rows != pp
-        ff.fir_fft_fused(x, torch.zeros(4, 7, 2), H, g, g)
-    with pytest.raises(ValueError):        # gci of another shape
-        ff.fir_fft_fused(x, uw, H, g, torch.zeros(8, 15))
+        ff.fir_fft_fused(x, torch.zeros(4, 7, 2), H, g)
+    with pytest.raises(ValueError):        # gt longer than the window
+        ff.fir_fft_fused(x, uw, H, torch.zeros(8, 17, 2))
     with pytest.raises(ValueError):        # T not a multiple of nbins
         ff.make_fused_chain(np.ones(4), 1024, device="cpu").run(
             torch.zeros(1, 1000, 2), torch.zeros(1, 3, 2))
