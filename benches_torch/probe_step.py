@@ -17,12 +17,15 @@ warm-up):
 - one step of the one-pass chain ``make_fused_chain`` and its
   ``correction_operand``; K3 ``fir_fft_fused`` at the step's shape,
   [32768, 1024] + u_w [32768, 64], with and without u_w, and its plain
-  version.
+  version;
+- one step of the split-stream chain ``make_split_step`` (pp = 64) at
+  R = 4, 8 and 16, its ``split_operand`` and one of its R K1 products,
+  [32768, 64 + 1024/R] x [64 + 1024/R, 1024/R].
 
 Then it traces three steps of each chain with ``torch.profiler`` (device
-time per kernel name, K3's share of the one-pass step among them) and
-reads the peak device memory of one step. It prints a
-summary and writes everything to ``<out>/probe_step_<tag>.json``.
+time per kernel name, K3's share of the one-pass step among them; the
+split step at R = 8) and reads the peak device memory of one step. It
+prints a summary and writes everything to ``<out>/probe_step_<tag>.json``.
 """
 
 import argparse
@@ -55,8 +58,8 @@ def main() -> int:
     from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
         correction_operand, correction_spectrum, fir_fft_fused,
         fir_fft_fused_plain, make_fused_chain)
-    from pothoscomms_tpu_torch.parallel.chain import (combined_operand,
-                                                      fir_fft_chain)
+    from pothoscomms_tpu_torch.parallel.chain import (
+        combined_operand, fir_fft_chain, make_split_step, split_operand)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -128,6 +131,19 @@ def main() -> int:
     res["fir_fft_fused_plain_ms"] = timed(
         lambda: fir_fft_fused_plain(xw, uw, fused.H, fused.gt, gc), reps=1)
     del xw, uw, gc
+    res["split"] = {}
+    splits = {}
+    for R in (4, 8, 16):
+        srun, _ = make_split_step(taps, NB, R, 64, device=dev)
+        splits[R] = srun
+        sa = split_operand(x, carry, srun.wr, NB, K, 64)
+        res["split"][R] = {
+            "step_ms": timed(lambda: srun(x, carry)),
+            "split_operand_ms": timed(
+                lambda: split_operand(x, carry, srun.wr, NB, K, 64)),
+            "cgemm_one_stream_ms": timed(
+                lambda: cgemm(sa[0], srun.gr[0], srun.gi[0]))}
+        del sa
 
     def trace(step):
         torch.cuda.synchronize()
@@ -144,6 +160,7 @@ def main() -> int:
 
     res["trace_3_steps"] = trace(run)
     res["trace_3_one_pass_steps"] = trace(fused.run)
+    res["trace_3_split_steps_R8"] = trace(splits[8])
     torch.cuda.reset_peak_memory_stats()
     run(x, carry)
     torch.cuda.synchronize()
@@ -161,6 +178,10 @@ def main() -> int:
         print(f"trace {v['share']:.4f} {v['us']:.0f} us  {k}")
     for k, v in list(res["trace_3_one_pass_steps"].items())[:6]:
         print(f"one-pass trace {v['share']:.4f} {v['us']:.0f} us  {k}")
+    for R, r in res["split"].items():
+        print(f"split R={R}: {r}")
+    for k, v in list(res["trace_3_split_steps_R8"].items())[:6]:
+        print(f"split R=8 trace {v['share']:.4f} {v['us']:.0f} us  {k}")
     print(f"peak_bytes_one_step: {res['peak_bytes_one_step']}")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

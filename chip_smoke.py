@@ -91,7 +91,33 @@ Phases, one or more lines each:
      launches E1, the output length is exact, windows
      at the start, across pull boundaries and at the end match a float64
      oracle run from W + 2 D + 1 samples earlier (atol 2e-3), and the wall
-     time from commit() to wait_inactive() with where it went.
+     time from commit() to wait_inactive() with where it went;
+ 16. a summary of the oracle errors of the paths (printed last);
+ 17. path "split_step": make_split_step(64 complex taps, 1024 bins, R,
+     pp = 64) for R in 4, 8, 16, three chained steps each on phase 5's
+     inputs (C = 256, T = 131072): R K1 launches a step, each on the
+     tensor cores at [32768, 64 + 1024/R] x [64 + 1024/R, 1024/R]; the
+     spectra within 1e-4 of the combined step's and of the float64
+     oracle on two channels, the carry exact; every stream's K1 launch
+     of a step against its plain version (1e-5 of max |plain|); the
+     step's time by CUDA events and on the card beside the combined and
+     one-pass steps, and K1's at each R's shape;
+ 18. path "resampler_chain": compile_chain([FIR 3:2 (60 complex taps),
+     IIR (default biquad)], 16) at T = 2^19 for three steps, and at
+     T = 768 for two (the IIR then blocks at 128, not 256): one K1
+     launch a step at [32768, 288] x [288, 384]; every step against the
+     same chain on K1's plain version (1e-5 of max), two channels of the
+     three steps against a float64 oracle (the polyphase sum, then
+     scipy's lfilter: resampler 1e-4 of max |y|, IIR output 2e-4
+     absolute); the step's time and Msamples/s, the FIR and IIR cores
+     alone and the IIR's block scan's share;
+ 19. path "resampler_block_api": FIRDesigner -> FIR 3:2 -> IIR <-
+     IIRDesigner (tapsChanged -> setTaps) with feeder and collector on
+     Topology(device="cuda:0"), fed 2^24 + 12345 samples: the segment
+     engages for one 2^24 pull (one K1 launch), the rest drains
+     streaming; the output length, windows at the start, inside the
+     pull, at its boundary and at the end against the float64 oracle
+     (atol 2e-4), and the wall time from commit() to wait_inactive().
 Then a JSON line of per-kernel results (with each kernel's bound_ms and
 bound_by, from this run's shapes and the H100's published peaks, and
 library_ms, one PyTorch call computing the same function, or null) and,
@@ -104,8 +130,11 @@ the paths, ``launches_by_path`` gives each; the conv branch's are
 reported apart, as ``conv_branch_launches``. K1's entry adds
 ``launches_by_variant`` (per path) and ``operator_launches`` (per path:
 each tensor-core launch also launches the operator kernel,
-``tf32_operator``); every K1 launch of the main path and the block API
-must go to its tensor-core variant.
+``tf32_operator``) and ``by_shape`` (K1 at the split step's and the
+resampler's shapes: its ms, on the card, its plain version's, one complex64
+torch.matmul's and its bound); every K1 launch of the main path, the block
+API, the split step and the resampler paths must go to its tensor-core
+variant.
 """
 
 import contextlib
@@ -173,8 +202,8 @@ def main() -> int:
         correction_spectrum, fused_consts_from_numpy)
     from pothoscomms_tpu_torch.parallel.chain import (
         carry_from_numpy, combined_fir_fft_operators, combined_operand,
-        fir_fft_chain, fir_multichannel, operators_from_numpy,
-        stack_combined_operators)
+        fir_fft_chain, fir_multichannel, make_split_step,
+        operators_from_numpy, split_operand, stack_combined_operators)
     from pothoscomms_tpu_torch.parallel.compiler import (
         chain_carry_from_numpy, compile_chain)
     from pothoscomms_tpu_torch.parallel.fft import fft_planar
@@ -235,6 +264,8 @@ def main() -> int:
         "make_fused_chain": device_types(make_fused_chain(np.ones(8) / 8,
                                                           1024)),
         "compile_chain": device_types(compile_chain([lone], 2)[1]),
+        "make_split_step": device_types(make_split_step(np.ones(8) / 8, 256,
+                                                        4, 16)),
         "operators_from_numpy": device_types(operators_from_numpy(
             (z((3, 4), np.float32),))),
         "carry_from_numpy": device_types(carry_from_numpy(
@@ -910,21 +941,33 @@ def main() -> int:
     e1_launched = []
 
     @contextlib.contextmanager
-    def recorded_envelope():
-        """Notes (P, T, L, Wr, ga, gr) of every E1 call made through
-        ops/filter while a path is driven; the call itself is E1's."""
-        saved = fops.envelope_rows
-
-        def noting(mag, env0, ga, gr, L, Wr):
-            e1_launched.append((mag.shape[0], mag.shape[1], int(L), int(Wr),
-                                float(ga), float(gr)))
-            return saved(mag, env0, ga, gr, L, Wr)
-
-        fops.envelope_rows = noting
+    def swapped(module, name, fn):
+        """``module.name`` is ``fn`` while a path is driven."""
+        saved = getattr(module, name)
+        setattr(module, name, fn)
         try:
-            yield
+            yield saved
         finally:
-            fops.envelope_rows = saved
+            setattr(module, name, saved)
+
+    @contextlib.contextmanager
+    def watched(module, name, note):
+        """While a path is driven, ``note(args, result)`` after every call
+        of ``module.name``; the call itself is the original's."""
+        def noting(*args, **kwargs):
+            out = saved(*args, **kwargs)
+            note(args, out)
+            return out
+
+        with swapped(module, name, noting) as saved:
+            yield
+
+    def note_e1(args, out):
+        """Notes (P, T, L, Wr, ga, gr) of an E1 call made through
+        ops/filter."""
+        mag, _, ga, gr, L, Wr = args
+        e1_launched.append((mag.shape[0], mag.shape[1], int(L), int(Wr),
+                            float(ga), float(gr)))
 
     def hold_e1_launches(path, since):
         """Every E1 shape that ``path`` launched (``e1_launched[since:]``)
@@ -953,16 +996,6 @@ def main() -> int:
         env.set_attack(attack)
         env.set_release(release)
         return [demod, dcr, env]
-
-    @contextlib.contextmanager
-    def plain_envelope():
-        """The chain's cores with E1's plain version in place of E1."""
-        saved = fops.envelope_rows
-        fops.envelope_rows = envelope_rows_plain
-        try:
-            yield
-        finally:
-            fops.envelope_rows = saved
 
     def fm_steps(c, t, n, seed):
         """n steps of a phase random walk with a carrier offset (0.25 rad
@@ -1003,7 +1036,7 @@ def main() -> int:
                                   device=dev)
     torch.cuda.synchronize()
     zero_counts()
-    with recorded_envelope():
+    with watched(fops, "envelope_rows", note_e1):
         carries_fm, ys_fm = [carry_fm], []
         for x in xf:
             y, c = step_fm(x, carries_fm[-1])
@@ -1041,7 +1074,7 @@ def main() -> int:
             check(ys_[s].shape == x.shape[:2]
                   and bool(torch.isfinite(ys_[s]).all()),
                   f"fm_chain {label} step {s}: shape or non-finite values")
-            with plain_envelope():
+            with swapped(fops, "envelope_rows", envelope_rows_plain):
                 yp, cp = stp(x, cs_[s])
             d = (ys_[s] - yp).abs().max().item()
             dc_ = max((a - b).abs().max().item()
@@ -1136,7 +1169,7 @@ def main() -> int:
 
     zero_counts()
     n_noted = len(e1_launched)
-    with recorded_envelope():
+    with watched(fops, "envelope_rows", note_e1):
         out15, seg15, secs15 = fm_block_run()
     launches15 = read_counts()
     print(f"[15] block API freq_demod -> dc_removal({DB}, {CASCB}) -> "
@@ -1194,10 +1227,450 @@ def main() -> int:
               f"{sb['collect']:.3f} s, drain {sb['drain']:.3f} s, rest "
               f"{rest:.3f} s")
 
+    def k1_at(phase, a, g_r, g_i, path):
+        """K1 at one of the new paths' shapes: held against its plain
+        version (below 1e-5 of max |plain|) and timed beside it, one
+        complex64 torch.matmul and its 3xTF32 bound. Returns the record
+        for the kernels line."""
+        nonlocal k1_abs
+        got = cgemm(a, g_r, g_i)
+        ref = cgemm_plain(a, g_r, g_i)
+        torch.cuda.synchronize()
+        d, rel = errs(got, ref)
+        k1_abs = max(k1_abs, d)
+        b_, n_ = a.shape[:2]
+        m_ = g_r.shape[1]
+        took = variant(n_, m_, a.data_ptr() % 16 == 0)
+        check(rel < 1e-5 and took == TENSOR_CORES,
+              f"cgemm at {path}'s {tuple(a.shape[:2])} disagrees with its plain version ({rel:.3e}) "
+              f"or took {took}")
+        a_c, g_c = torch.view_as_complex(a), torch.complex(g_r, g_i)
+        nbytes = 4 * (b_ * n_ * 2 + 2 * n_ * m_ + b_ * m_ * 2)
+        bnd = bound(nbytes, 3 * 8 * b_ * n_ * m_, TF32_OPS)
+        rec = {"path": path, "shape": f"[{b_},{n_}]x[{n_},{m_}]",
+               "max_rel_to_plain": rel,
+               "ms": median_ms(lambda: cgemm(a, g_r, g_i)),
+               "device_ms": device_ms(cgemm, [(a, g_r, g_i)], per_call=2,
+                                      floor_ms=bnd[0]),
+               "plain_ms": median_ms(lambda: cgemm_plain(a, g_r, g_i)),
+               "library_ms": median_ms(lambda: torch.matmul(a_c, g_c)),
+               "bound_ms": bnd[0], "bound_by": bnd[1]}
+        print(f"[{phase}] cgemm {rec['shape']} ({path}): "
+              f"/max|plain| {rel:.3e} (limit 1e-5), {took}; {rec['ms']:.4f} "
+              f"ms ({f4(rec['device_ms'])} on the card), plain "
+              f"{rec['plain_ms']:.4f} ms, one complex64 torch.matmul "
+              f"{rec['library_ms']:.4f} ms; bound {bnd[0]:.4f} ms by "
+              f"{bnd[1]} ({bnd[0] / rec['ms']:.1%} of it)")
+        return rec
+
+    k1_by_shape = []
+
+    # -- 17. path "split_step": the split-stream FIR -> FFT step ---------
+    from pothoscomms_tpu_torch.parallel import chain as chain_mod
+
+    PP, SPLIT_R = 64, (4, 8, 16)
+    split_runs = {R: make_split_step(taps, NB, R, PP, device=dev)[0]
+                  for R in SPLIT_R}
+    k1_shapes17 = []
+    zero_counts()
+    with watched(chain_mod, "cgemm", lambda args, out: k1_shapes17.append(
+            (tuple(args[0].shape[:2]), tuple(args[1].shape)))):
+        split_specs, split_carries = {}, {}
+        for R, srun in split_runs.items():
+            cs, ss = [carry0], []
+            for x in xs:
+                spec, c = srun(x, cs[-1])
+                ss.append(spec)
+                cs.append(c)
+            split_specs[R], split_carries[R] = ss, cs
+    launches17 = read_counts()
+    print(f"[17] split step C={C} T={T} K={K} NBINS={NB} pp={PP}, R in "
+          f"{SPLIT_R}, 3 steps each: launches {launches17}")
+    want17 = sum(3 * R for R in SPLIT_R)
+    check(launches17["cgemm"] == want17
+          and launches17["cgemm_by_variant"][TENSOR_CORES] == want17
+          and launches17["tf32_operator"] == want17,
+          f"the split step launched cgemm {launches17['cgemm']} times, "
+          f"{want17} on the tensor cores expected")
+    check(sorted(set(k1_shapes17)) == sorted(
+        ((C * T // NB, PP + NB // R), (PP + NB // R, NB // R))
+        for R in SPLIT_R), f"split-step K1 shapes {sorted(set(k1_shapes17))}")
+    oracle17 = {}
+    for ch in (0, C - 1):
+        seq = np.concatenate([xs_host[1][ch][T - (K - 1):], xs_host[2][ch]])
+        seq = seq[:, 0].astype(np.float64) + 1j * seq[:, 1]
+        y = np.convolve(seq, taps)[K - 1: K - 1 + T]
+        oracle17[ch] = np.fft.fft(y.reshape(T // NB, NB), axis=-1)
+    split_err = 0.0
+    for R in SPLIT_R:
+        for s, x in enumerate(xs):
+            spec = split_specs[R][s]
+            check(spec.shape == (C, T // NB, NB, 2)
+                  and bool(torch.isfinite(spec).all()),
+                  f"split R={R} step {s}: shape or non-finite values")
+            _, rel = errs(spec, specs[s])
+            exact = torch.equal(split_carries[R][s + 1], x[:, T - (K - 1):])
+            print(f"[17] R={R} step {s}: /max|combined step| {rel:.3e} "
+                  f"(limit 1e-4), carry exact {exact}")
+            check(rel < 1e-4 and exact, f"split R={R} step {s} disagrees "
+                                        f"with the combined step or carry")
+        for ch, exp in oracle17.items():
+            got = split_specs[R][2][ch].cpu().numpy()
+            rel = np.max(np.abs(got[..., 0] + 1j * got[..., 1] - exp)) \
+                / np.max(np.abs(exp))
+            split_err = max(split_err, rel)
+            print(f"[17] R={R} step 2 channel {ch} vs float64 numpy oracle: "
+                  f"/max|spectrum| {rel:.3e} (limit 1e-4)")
+            check(rel < 1e-4, f"split R={R} channel {ch} disagrees with the "
+                              f"oracle")
+    del split_specs, split_carries
+    # every K1 launch of the step, at its shape, against the plain version
+    for R, srun in split_runs.items():
+        a17 = split_operand(x0, carry0, srun.wr, NB, K, PP)
+        for r in range(R):
+            got = cgemm(a17[r], srun.gr[r], srun.gi[r])
+            ref = cgemm_plain(a17[r], srun.gr[r], srun.gi[r])
+            torch.cuda.synchronize()
+            d, rel = errs(got, ref)
+            k1_abs = max(k1_abs, d)
+            check(rel < 1e-5, f"cgemm, split R={R} stream {r}: {rel:.3e}")
+        print(f"[17] R={R}: each of the {R} K1 launches of a step "
+              f"[{C * T // NB},{PP + NB // R}]x[{PP + NB // R},{NB // R}] "
+              f"within 1e-5 of max|plain|")
+        k1_by_shape.append(k1_at(17, a17[0], srun.gr[0],
+                                 srun.gi[0], "split_step"))
+        del a17, got, ref
+    split_ms, split_dev_ms, split_operand_ms = {}, {}, {}
+    step_floor = probe_stream_ceiling.bytes_bound_ms(2 * C * T * 8)
+    for R, srun in split_runs.items():
+        split_ms[R] = median_ms(lambda: srun(x0, carry0))
+        split_dev_ms[R] = device_ms(srun, [(x0, carry0)], floor_ms=step_floor)
+        split_operand_ms[R] = median_ms(lambda: split_operand(
+            x0, carry0, srun.wr, NB, K, PP))
+        print(f"[17] on {card}: split step R={R} {split_ms[R]:.3f} ms "
+              f"({C * T / split_ms[R] / 1e3:.1f} Msamples/s; "
+              f"{f4(split_dev_ms[R])} ms on the card), its operand build "
+              f"{split_operand_ms[R]:.3f} ms; combined step {combined_ms:.3f} "
+              f"ms, one-pass step {one_pass_ms:.3f} ms")
+    del split_runs
+
+    # -- 18. path "resampler_chain": BASELINE config #3 through
+    # compile_chain ------------------------------------------------------
+    from scipy.signal import lfilter
+
+    CR, TR, TRS, MR, LR = 16, 1 << 19, 768, 2, 3
+    taps18 = (rng.normal(size=60) + 1j * rng.normal(size=60)) / 60
+
+    def config3_blocks(taps_):
+        fir = BlockRegistry.make("/comms/fir_filter", "complex_float32",
+                                 "COMPLEX")
+        fir.set_taps(taps_)
+        fir.set_decimation(MR)
+        fir.set_interpolation(LR)
+        return [fir, BlockRegistry.make("/comms/iir_filter",
+                                        "complex_float32")]
+
+    def unit_complex(*shape):
+        """complex normal of unit variance as planar float32 on the card"""
+        return on_card(normal(*shape, 2) / np.float32(np.sqrt(2.0)))
+
+    def resampled(xh, taps_, t_idx):
+        """float64 resampler outputs at indices ``t_idx`` over ``xh``,
+        whose first K-1 samples are the history (the polyphase sum of
+        ops/filter.py: y[t] = sum_k taps[u%L + kL] xh[u//L + K-1 - k],
+        u = t M + M - 1)."""
+        kk = len(taps_) // LR
+        u = np.asarray(t_idx) * MR + (MR - 1)
+        y = np.zeros(len(u), np.complex128)
+        for k in range(kk):
+            y += taps_[u % LR + k * LR] * xh[u // LR + kk - 1 - k]
+        return y
+
+    blocks18 = config3_blocks(taps18)
+    K18 = blocks18[0]._K - 1  # the resampler's input history, 19 samples
+    iir_ba = (blocks18[1]._b / blocks18[1]._a[0],
+              blocks18[1]._a / blocks18[1]._a[0])
+    step18, carry18 = compile_chain(blocks18, CR, device=dev)
+    step18s, carry18s = compile_chain(config3_blocks(taps18), CR, device=dev)
+    xs18 = [unit_complex(CR, TR) for _ in range(3)]
+    xs18s = [unit_complex(CR, TRS) for _ in range(2)]
+    iir_ls, fir_out18 = [], []
+
+    def note_fir(args, out):
+        if args[0].shape[1] == TR:
+            fir_out18.append(out[0][[0, CR - 1]].cpu())
+
+    torch.cuda.synchronize()
+    zero_counts()
+    with watched(fops, "iir_blocked_step", lambda args, out: iir_ls.append(
+            (tuple(args[0].shape), args[6]))), \
+            watched(fops, "rational_fir_mm", note_fir):
+        carries18, ys18 = [carry18], []
+        for x in xs18:
+            y, c = step18(x, carries18[-1])
+            ys18.append(y)
+            carries18.append(c)
+        carries18s, ys18s = [carry18s], []
+        for x in xs18s:
+            y, c = step18s(x, carries18s[-1])
+            ys18s.append(y)
+            carries18s.append(c)
+    launches18 = read_counts()
+    print(f"[18] resampler chain compile_chain([FIR 3:2 (60 complex taps), "
+          f"IIR (default biquad)], {CR}) at T={TR} (3 steps) and T={TRS} "
+          f"(2 steps): launches {launches18}; the IIR's blocked steps "
+          f"(planes x samples, block length): {sorted(set(iir_ls))}")
+    check(launches18["cgemm"] == 5
+          and launches18["cgemm_by_variant"][TENSOR_CORES] == 5
+          and launches18["tf32_operator"] == 5,
+          "the resampler chain did not launch cgemm once a step on the "
+          "tensor cores")
+    check(sorted(set(iir_ls)) == [((2 * CR, TRS * LR // MR), 128),
+                                  ((2 * CR, TR * LR // MR), 256)],
+          f"the IIR took blocks {sorted(set(iir_ls))}")
+    for label, xs_, ys_, cs_, stp, t_ in (
+            (f"T={TR}", xs18, ys18, carries18, step18, TR),
+            (f"T={TRS}", xs18s, ys18s, carries18s, step18s, TRS)):
+        for s, x in enumerate(xs_):
+            check(ys_[s].shape == (CR, t_ * LR // MR, 2)
+                  and bool(torch.isfinite(ys_[s]).all()),
+                  f"resampler {label} step {s}: shape or non-finite values")
+            # the resampler's core with K1's plain version in place of K1
+            with swapped(fops, "cgemm", cgemm_plain):
+                yp, cp = stp(x, cs_[s])
+            _, rel = errs(ys_[s], yp)
+            dc_ = max((a - b).abs().max().item()
+                      for a, b in zip(cs_[s + 1], cp))
+            exact = torch.equal(cs_[s + 1][0], x[:, t_ - K18:])
+            print(f"[18] {label} step {s} vs the chain on K1's plain "
+                  f"version: /max|y| {rel:.3e} (limit 1e-5), carries "
+                  f"{dc_:.3e}; FIR carry the last {K18} inputs: {exact}")
+            check(rel < 1e-5 and dc_ <= 1e-5 and exact,
+                  f"resampler {label} step {s} disagrees with the plain "
+                  f"chain")
+    xh18 = torch.cat(xs18, dim=1)[[0, CR - 1]].double().cpu().numpy()
+    fir18 = torch.cat(fir_out18, dim=1).double().numpy()
+    out18 = torch.cat(ys18, dim=1)[[0, CR - 1]].double().cpu().numpy()
+    n18 = 3 * TR * LR // MR
+    res_err, iir_err = 0.0, 0.0
+    for i, ch in enumerate((0, CR - 1)):
+        xc = xh18[i, :, 0] + 1j * xh18[i, :, 1]
+        ref = resampled(np.concatenate([np.zeros(K18), xc]), taps18,
+                        np.arange(n18))
+        got = fir18[i, :, 0] + 1j * fir18[i, :, 1]
+        rel = np.max(np.abs(got - ref)) / np.max(np.abs(ref))
+        out = lfilter(*iir_ba, ref)
+        d = np.max(np.abs(out18[i, :, 0] + 1j * out18[i, :, 1] - out))
+        res_err, iir_err = max(res_err, rel), max(iir_err, d)
+        print(f"[18] channel {ch}, 3 steps vs float64 oracle (polyphase "
+              f"sum, then lfilter): resampler /max|y| {rel:.3e} (limit "
+              f"1e-4), IIR output max|d| {d:.3e} (atol 2e-4)")
+        check(rel < 1e-4 and d < 2e-4,
+              f"resampler chain channel {ch} disagrees with the oracle")
+    del fir_out18, fir18, out18, xh18
+    # where a step's time goes: the step, the FIR core and the IIR core
+    # alone, and the IIR's block scan at the step's shapes
+    step18_ms = median_ms(lambda: step18(xs18[0], carry18))
+    step18_dev_ms = device_ms(step18, [(xs18[0], carry18)],
+                              floor_ms=probe_stream_ceiling.bytes_bound_ms(
+                                  CR * TR * 8 * (1 + LR / MR)))
+    _, fir_core = blocks18[0].device_core(CR, device=dev)
+    iir_carry, iir_core = blocks18[1].device_core(CR, device=dev)
+    y_fir = fir_core(carry18[0], xs18[0])[1]
+    fir_core_ms = median_ms(lambda: fir_core(carry18[0], xs18[0]))
+    iir_core_ms = median_ms(lambda: iir_core(iir_carry, y_fir))
+    ops18 = fops.iir_blocked_operators(*iir_ba, 256)
+    nb18 = TR * LR // MR // 256
+    u18 = on_card(normal(nb18, 2, 2 * CR))
+    z18 = on_card(normal(2, 2 * CR))
+    m18 = on_card(ops18[2].astype(np.float32))
+    p18 = on_card(fops.iir_scan_powers(ops18[2], nb18).astype(np.float32))
+    scan_ms = median_ms(lambda: fops.iir_block_scan(u18, z18, m18, p18))
+    scan_dev_ms = device_ms(fops.iir_block_scan, [(u18, z18, m18, p18)])
+    iir_dev_ms = device_ms(iir_core, [(iir_carry, y_fir)])
+    rows18 = CR * TR // 256
+    a18 = fops.rational_operand(xs18[0], carry18[0], 256, 32)
+    gr18, gi18 = fops.stack_rational_operators(
+        *fops.rational_fir_operators(taps18, MR, LR)[:2])
+    k1_by_shape.append(k1_at(18, a18, gr18.to(dev), gi18.to(dev),
+                             "resampler_chain"))
+    check(a18.shape == (rows18, 288, 2), f"resampler operand {a18.shape}")
+    print(f"[18] on {card}: resampler chain step C={CR} T={TR} "
+          f"{step18_ms:.3f} ms ({CR * TR / step18_ms / 1e3:.1f} Msamples/s "
+          f"in, {f4(step18_dev_ms)} ms on the card); FIR core "
+          f"{fir_core_ms:.3f} ms, IIR core {iir_core_ms:.3f} ms "
+          f"({f4(iir_dev_ms)} on the card); the IIR's block scan alone "
+          f"({nb18} blocks, {int(np.ceil(np.log2(nb18)))} rounds) "
+          f"{scan_ms:.3f} ms by events ({f4(scan_dev_ms)} on the card)")
+    # the scan's share of the step, from one trace of three steps: its
+    # kernels are those launched inside its range
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    scan18 = fops.iir_block_scan
+
+    def scan_ranged(*args):
+        with record_function("iir_block_scan"):
+            return scan18(*args)
+
+    torch.cuda.synchronize()
+    with swapped(fops, "iir_block_scan", scan_ranged), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        c = carry18
+        for _ in range(3):
+            _, c = step18(xs18[0], c)
+        torch.cuda.synchronize()
+        trace_ms = (time.perf_counter() - t0) * 1e3 / 3
+    evs = prof.events()
+    ranges18 = [e for e in evs if e.name == "iir_block_scan"
+                and e.device_type == DeviceType.CPU]
+    step_card_ms = sum(e.device_time_total for e in evs
+                       if e.device_type == DeviceType.CUDA
+                       and e.name != "iir_block_scan") / 3e3
+    scan_card_ms = sum(e.device_time_total for e in ranges18) / 3e3
+    scan_host_ms = sum(e.cpu_time_total for e in ranges18) / 3e3
+    check(len(ranges18) == 3 and step_card_ms > 0,
+          f"the trace holds {len(ranges18)} scans (3 expected) and "
+          f"{step_card_ms} ms of kernels")
+    of_core = "not measured" if iir_dev_ms is None \
+        else f"{scan_card_ms / iir_dev_ms:.1%}"
+    print(f"[18] on {card}: trace of 3 resampler steps, per step: "
+          f"{trace_ms:.3f} ms of wall (profiler on), {step_card_ms:.4f} ms "
+          f"of kernels ({step_card_ms / trace_ms:.1%} busy); the block "
+          f"scan's kernels {scan_card_ms:.4f} ms "
+          f"({scan_card_ms / step_card_ms:.1%} of the step's device time, "
+          f"{of_core} of the IIR core's on the card), its host time "
+          f"{scan_host_ms:.3f} ms ({scan_host_ms / trace_ms:.1%} of the "
+          f"step's wall)")
+    del xs18, xs18s, ys18, ys18s, carries18, carries18s, y_fir, a18, u18
+
+    # -- 19. path "resampler_block_api": config #3 through the block API -
+    n19 = (1 << 24) + 12345
+    rng19 = np.random.default_rng(19)
+    x19 = ((rng19.standard_normal(n19, dtype=np.float32)
+            + 1j * rng19.standard_normal(n19, dtype=np.float32))
+           / np.float32(np.sqrt(2.0))).astype(np.complex64)
+
+    def config3_block_run():
+        fird = BlockRegistry.make("/comms/fir_designer")
+        fird.set_band_type("LOW_PASS")
+        fird.set_filter_type("SINC")
+        fird.set_sample_rate(1.0)
+        fird.set_frequency_lower(0.2)
+        fird.set_num_taps(60)
+        iird = BlockRegistry.make("/comms/iir_designer")
+        iird.set_order(4)
+        iird.set_frequency_lower(0.25)
+        fir, iir = config3_blocks([1.0])
+        fir.set_wait_taps(True)
+        iir.set_wait_taps(True)
+        feed = FeederSource("complex_float32")
+        sink = CollectorSink("complex_float32")
+        topo = Topology(device=dev)
+        topo.connect(fird, "tapsChanged", fir, "setTaps")
+        topo.connect(iird, "tapsChanged", iir, "setTaps")
+        for a, b in ((feed, fir), (fir, iir), (iir, sink)):
+            topo.connect(a, 0, b, 0)
+        # edges sized as in phase 10, for the 1.5x output
+        fir.input(0).set_capacity(2 * n19)
+        sink.input(0).set_capacity(2 * n19)
+        feed.feed_buffer(x19)
+        secs = {"engage": 0.0, "pull": 0.0, "fused": 0.0}
+
+        def timed(fn, key):
+            def call(*args):
+                t = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                secs[key] += time.perf_counter() - t
+                return out
+            return call
+
+        t0 = time.perf_counter()
+        topo.commit()
+        seg = topo._segments[0]
+        seg.try_engage = timed(seg.try_engage, "engage")
+        seg._pull = timed(seg._pull, "pull")
+        seg.work = timed(seg.work, "fused")
+        check(topo.wait_inactive(timeout=300.0), "config #3 block path did "
+                                                 "not finish")
+        secs["wall"] = time.perf_counter() - t0
+        secs["collect"] = sink._work_time
+        secs["drain"] = fir._work_time + iir._work_time - secs["fused"]
+        secs["step"] = secs["fused"] - secs["pull"]
+        return sink.get_buffer(), seg, secs, fir.get_taps(), iir.get_taps()
+
+    k1_calls19 = []
+    zero_counts()
+    with watched(fops, "cgemm", lambda args, out: k1_calls19.append(args)):
+        out19, seg19, secs19, taps19, iir_taps19 = config3_block_run()
+    launches19 = read_counts()
+    n_out19 = (n19 - 19) // MR * LR
+    print(f"[19] block API FIRDesigner -> FIR 3:2 ({len(taps19)} taps) -> "
+          f"IIR ({len(iir_taps19)} taps) <- IIRDesigner on {dev}, {n19} "
+          f"samples: launches {launches19}; segment of "
+          f"{len(seg19.blocks)} blocks engaged {seg19.engage_count}x, "
+          f"{seg19.fused_elements} samples fused")
+    check(len(taps19) == 60 and len(iir_taps19) == 10,
+          "the designers did not set the filters' taps")
+    check(seg19.engage_count >= 1 and len(seg19.blocks) == 2
+          and seg19.fused_elements == 1 << 24,
+          "the config #3 segment did not engage for one 2^24 pull")
+    shapes19 = [(tuple(a.shape[:2]), tuple(g.shape)) for a, g, _ in
+                k1_calls19]
+    print(f"[19] K1 launches (operand, operator planes): {shapes19}")
+    check(launches19["cgemm"] == 1
+          and launches19["cgemm_by_variant"][TENSOR_CORES] == 1
+          and shapes19 == [(((1 << 24) // 256, 288), (288, 384))],
+          "the config #3 block path did not launch cgemm once on the "
+          "tensor cores for its 2^24 pull")
+    # K1 against its plain version on the pull's own operand
+    k1_by_shape.append(k1_at(19, *k1_calls19[0], "resampler_block_api"))
+    del k1_calls19
+    check(out19.shape == (n_out19,) and out19.dtype == np.complex64
+          and bool(np.isfinite(out19.view(np.float32)).all()),
+          f"config #3 block path output {out19.shape} {out19.dtype}, "
+          f"expected ({n_out19},) complex64, finite")
+    half19 = len(iir_taps19) // 2
+    ba19 = (iir_taps19[:half19] / iir_taps19[half19],
+            iir_taps19[half19:] / iir_taps19[half19])
+    x19d = x19.astype(np.complex128)
+    lead19, win19 = 4096, 512
+    pull_out = (1 << 24) // MR * LR
+    block_err = 0.0
+    for what, s0 in (("start", 0), ("inside the pull", pull_out // 2),
+                     ("pull boundary", pull_out - win19 // 2),
+                     ("end", n_out19 - win19)):
+        a = max(0, s0 - lead19)
+        ref = lfilter(*ba19, resampled(x19d, taps19, np.arange(
+            a, s0 + win19)))[s0 - a:]
+        d = np.max(np.abs(out19[s0:s0 + win19] - ref))
+        block_err = max(block_err, d)
+        print(f"[19] window [{s0}, {s0 + win19}) ({what}) vs float64 "
+              f"oracle from {s0 - a} outputs earlier: max|d| {d:.3e} "
+              f"(atol 2e-4)")
+        check(d < 2e-4, f"config #3 block path window at {s0} disagrees "
+                        f"with the oracle")
+    del out19
+    out19b, _, secs19b, _, _ = config3_block_run()
+    check(out19b.shape == (n_out19,), "second config #3 block path run length")
+    del out19b
+    for label, sb in (("first (cold)", secs19), ("second", secs19b)):
+        rest = sb["wall"] - sb["engage"] - sb["fused"] - sb["collect"] \
+            - sb["drain"]
+        print(f"[19] on {card}: {label} run {sb['wall']:.3f} s from commit() "
+              f"to wait_inactive(), {n19 / sb['wall'] / 1e6:.1f} "
+              f"Msamples/s in; engage {sb['engage']:.3f} s, pulls (H2D) "
+              f"{sb['pull']:.3f} s, fused steps {sb['step']:.3f} s, collect "
+              f"{sb['collect']:.3f} s, drain {sb['drain']:.3f} s, rest "
+              f"{rest:.3f} s")
+
     by_path = {"chain": launches, "one_pass": launches3,
                "block_api": launches_b, "stream_ceiling": launches_p1,
                "layout": launches_p2, "fm_chain": launches_fm,
-               "fm_block_api": launches15}
+               "fm_block_api": launches15, "split_step": launches17,
+               "resampler_chain": launches18,
+               "resampler_block_api": launches19}
     par = "pothoscomms_tpu/parallel/pallas_kernels.py"
     # the bound of each kernel at the shape its ms was taken: bytes of its
     # inputs and outputs, and the float32 operations of its function
@@ -1248,6 +1721,9 @@ def main() -> int:
     kernels[0]["operator_launches"] = {
         p: c["tf32_operator"] for p, c in by_path.items()}
     kernels[0]["simt_ms"] = k1_simt_ms
+    # K1 at the shapes of the split step (one record per R, stream 0's
+    # operands) and of the resampler, each held against its plain version
+    kernels[0]["by_shape"] = k1_by_shape
     # CUDA events around one call also hold the host's enqueue, which
     # weighs on K2 and P2 (~0.2 ms and ~10 us), so their time on the card
     # is given too, as K1's is above
@@ -1274,8 +1750,11 @@ def main() -> int:
     kernels[4]["plain_ms_by_mode"] = {m: p2[f"{m}_plain_ms"] for m in MODES}
     kernels[4]["library_ms_by_mode"] = {
         m: p2[f"{'B' if m == 'D' else m}_plain_ms"] for m in MODES}
-    print(f"[16] FM oracle errors: fm_chain {fm_err:.3e}, fm_block_api "
-          f"{fm_block_err:.3e}")
+    print(f"[16] oracle errors: fm_chain {fm_err:.3e}, fm_block_api "
+          f"{fm_block_err:.3e} (atol 2e-3); split step {split_err:.3e} of "
+          f"max|spectrum| (limit 1e-4); resampler chain {res_err:.3e} of "
+          f"max|y| (limit 1e-4), its IIR output {iir_err:.3e}, config #3 "
+          f"block API {block_err:.3e} (atol 2e-4)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,14 +6,17 @@ the port is tested against (``tests/test_torch_*.py``).
 
 So far it covers:
 
-- the FIR -> FFT chain as functions (:mod:`.parallel`), its complex
-  products and FFTs on hand-written CUDA kernels (:mod:`.kernels`,
-  sources in ``csrc/``), and the one-pass FIR+FFT chain on its own
-  kernel (:mod:`.kernels.fir_fft_fused`);
+- the FIR -> FFT chain as functions (:mod:`.parallel`) in three forms
+  (the combined operator, the split-stream step, the one-pass kernel of
+  :mod:`.kernels.fir_fft_fused`), its complex products and FFTs on
+  hand-written CUDA kernels (:mod:`.kernels`, sources in ``csrc/``);
 - the block API: the streaming runtime (:mod:`.core`), the fixture
-  blocks, /comms/fir_filter and /comms/fft (:mod:`.blocks`), the filter
-  designers (:mod:`.design`) and auto-fusion (:mod:`.core.fusion`), on
-  the device a :class:`Topology` is given.
+  blocks, the filter blocks (FIR with rational rates, IIR, DC removal,
+  envelope, the FIR and IIR designers), the FFT and the FM discriminator
+  (:mod:`.blocks`), the design library (:mod:`.design`) and auto-fusion
+  (:mod:`.core.fusion`), on the device a :class:`Topology` is given;
+- :func:`.parallel.compiler.compile_chain` over any of those blocks'
+  fused cores.
 """
 
 from pothoscomms_tpu_torch.core.block import Block

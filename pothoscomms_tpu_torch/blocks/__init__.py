@@ -1,8 +1,9 @@
 """Block catalog of the port — importing this package registers every
 ported block factory in the port's own registry: the test fixtures,
-/comms/fft, /comms/fir_filter, /comms/freq_demod, /comms/dc_removal and
-/comms/envelope_detector. The rest of the JAX package's catalog
-is still to port (ROADMAP.md Queue 1).
+/comms/fft, /comms/fir_filter, /comms/iir_filter, /comms/freq_demod,
+/comms/dc_removal, /comms/envelope_detector, /comms/fir_designer and
+/comms/iir_designer. The rest of the JAX package's catalog is still to
+port (ROADMAP.md Queue 1).
 """
 
 import pothoscomms_tpu_torch.core.fixtures  # noqa: F401  test fixture blocks

@@ -129,9 +129,12 @@ def tf32_operator(gr: torch.Tensor, gi: torch.Tensor):
 tf32_operator.launches = 0
 
 
-def cgemm(a: torch.Tensor, gr: torch.Tensor,
-          gi: torch.Tensor) -> torch.Tensor:
-    """Complex product y [B, M, 2] = a [B, N, 2] @ (gr + i gi) [N, M].
+def cgemm(a: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,
+          out: torch.Tensor = None) -> torch.Tensor:
+    """Complex product y [B, M, 2] = a [B, N, 2] @ (gr + i gi) [N, M],
+    written into ``out`` when one is given (contiguous float32 [B, M, 2]
+    on a's device; the split step writes each stream's product into its
+    slot of one buffer so).
 
     On CUDA every operand must be contiguous float32; the kernel runs on
     the current stream. The tensor-core variant builds its operator from
@@ -139,24 +142,32 @@ def cgemm(a: torch.Tensor, gr: torch.Tensor,
     M = 1024).
     """
     _check(a, gr, gi)
+    if out is not None and (out.shape != (a.shape[0], gr.shape[1], 2)
+                            or out.dtype != torch.float32
+                            or out.device != a.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"cgemm: out must be contiguous float32 "
+                         f"[{a.shape[0]}, {gr.shape[1]}, 2] on {a.device}")
     if a.device.type == "cpu":
-        return cgemm_plain(a, gr, gi)
+        y = cgemm_plain(a, gr, gi)
+        return y if out is None else out.copy_(y)
     if a.device.type != "cuda":
         raise ValueError(f"cgemm: no kernel for device {a.device}")
     if not all(t.is_contiguous() for t in (a, gr, gi)):
         raise ValueError("cgemm: operands must be contiguous")
     n, m = gr.shape
-    return _launch(a, gr, gi, variant(n, m, a.data_ptr() % 16 == 0))
+    return _launch(a, gr, gi, variant(n, m, a.data_ptr() % 16 == 0), out)
 
 
 def _launch(a: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,
-            kind: str) -> torch.Tensor:
+            kind: str, out: torch.Tensor = None) -> torch.Tensor:
     """Launch K1's ``kind`` variant, picked by :func:`variant`, on the
     operands :func:`cgemm` has checked. Counts the launch in
     ``cgemm.launches`` and ``cgemm.launches_by_variant``."""
     b, n, _ = a.shape
     m = gr.shape[1]
-    y = torch.empty((b, m, 2), dtype=torch.float32, device=a.device)
+    y = torch.empty((b, m, 2), dtype=torch.float32, device=a.device) \
+        if out is None else out
     simt, _, tc = _entries()
     if kind == TENSOR_CORES:
         tiles = -(-b // 128) * -(-2 * m // 128)

@@ -1,6 +1,9 @@
 """Filter cores (the port of the JAX package's ``ops/filter.py``): the
-polyphase rational-resampling FIR (``polyphase_fir``, ``fir_tap_state``),
-the moving-average cascade of DC removal and the envelope follower.
+polyphase rational-resampling FIR (``polyphase_fir``, ``fir_tap_state``)
+and its blocked-Toeplitz product form (``rational_fir_mm``, on the K1
+kernel), the IIR filter's direct form (``iir_df``, on the host) and
+blocked state-space form (``iir_blocked_step``), the moving-average
+cascade of DC removal and the envelope follower (the E1 kernel).
 
 The reference's per-sample interp/decim counter loop
 (filter/FIRFilter.cpp:286-302) becomes static index arithmetic over all
@@ -23,6 +26,7 @@ import torch
 
 from pothoscomms_tpu_torch.core.dtypes import DType
 from pothoscomms_tpu_torch.core.qformat import Q_ACCUMULATOR, float_to_q
+from pothoscomms_tpu_torch.kernels.cgemm import cgemm
 from pothoscomms_tpu_torch.kernels.envelope import envelope_rows
 
 
@@ -112,6 +116,228 @@ def polyphase_fir(xh: torch.Tensor, taps_q: torch.Tensor, M: int, L: int,
     else:
         raise ValueError(f"unknown fir kind {kind}")
     return acc >> half_shift
+
+
+# ---------------------------------------------------------------------- #
+# The rational resampler as a blocked-Toeplitz product (the K1 kernel on
+# CUDA)
+# ---------------------------------------------------------------------- #
+def rational_fir_operators(taps, M: int, L: int, block_in: int = None):
+    """Blocked-Toeplitz operators for the rational resampler as a
+    product: over a block of B_in input samples producing
+    B_out = B_in*L/M outputs,
+
+        y_blk = x_blk @ T0 + prev_tail @ T1,
+
+    with T0 [B_in, B_out], T1 [K-1, B_out] built from the polyphase map
+    (filter/FIRFilter.cpp:286-302: output t at upsampled position
+    u = t*M + M-1, y[t] = sum_k taps[u%L + k*L] * x[u//L - k]).
+
+    Returns (t0 planar [B_in, B_out, 2], t1 planar [max(K-1, 1), B_out,
+    2], B_in, B_out) as float32 tensors."""
+    h = np.asarray(taps, np.complex128)
+    # K = ceil(n/L) with zero padding, matching _polyphase_matrix
+    K = len(h) // L + (0 if len(h) % L == 0 else 1)
+    hp = np.zeros(K * L, np.complex128)
+    hp[: len(h)] = h
+    b_in = block_in or 128 * M
+    if b_in % M:
+        raise ValueError(f"block_in {b_in} is not a multiple of M={M}")
+    b_out = (b_in // M) * L
+    t0 = np.zeros((b_in, b_out), np.complex128)
+    t1 = np.zeros((max(K - 1, 1), b_out), np.complex128)
+    for t in range(b_out):
+        u = t * M + (M - 1)
+        n = u // L
+        j = u % L
+        for k in range(K):
+            i = n - k
+            c = hp[j + k * L]
+            if i >= 0:
+                t0[i, t] += c
+            else:
+                t1[(K - 1) + i, t] += c
+
+    def planar(z):
+        return torch.from_numpy(
+            np.stack([z.real, z.imag], -1).astype(np.float32))
+
+    return planar(t0), planar(t1), b_in, b_out
+
+
+# The previous block's tail sits in the product's operand behind zero rows,
+# up to a multiple of this width: N = tail + B_in then stays even, which K1
+# needs for its tensor-core variant (kernels/cgemm.variant).
+RATIONAL_TAIL_ROWS = 32
+
+
+def stack_rational_operators(t0: torch.Tensor, t1: torch.Tensor):
+    """(t0, t1) of :func:`rational_fir_operators` -> the stacked [T1; T0]
+    planes (gr, gi), each [kp + B_in, B_out], T1's K-1 rows behind
+    kp - (K-1) zero rows (kp: K-1 rounded up to RATIONAL_TAIL_ROWS)."""
+    k1 = t1.shape[0]
+    kp = -(-k1 // RATIONAL_TAIL_ROWS) * RATIONAL_TAIL_ROWS
+    g = torch.cat([t1.new_zeros(kp - k1, t1.shape[1], 2), t1, t0])
+    return g[..., 0].contiguous(), g[..., 1].contiguous()
+
+
+def rational_operand(x: torch.Tensor, history: torch.Tensor, b_in: int,
+                     kp: int) -> torch.Tensor:
+    """The resampler product's left operand [C * T//b_in, kp + b_in, 2]:
+    each input block behind the K-1 samples before it (the history before
+    block 0), those behind kp - (K-1) zeros."""
+    c, t, _ = x.shape
+    k1 = history.shape[1]
+    nb = t // b_in
+    xb = x.reshape(c, nb, b_in, 2)
+    prev = torch.cat([history[:, None], xb[:, :-1, b_in - k1:]], dim=1)
+    a = torch.cat([x.new_zeros(c, nb, kp - k1, 2), prev, xb], dim=2)
+    return a.reshape(c * nb, kp + b_in, 2)
+
+
+def rational_fir_mm(x: torch.Tensor, history: torch.Tensor, gr, gi,
+                    b_in: int, b_out: int):
+    """Matmul rational resampler: x [C, T, 2] planar float32 with
+    T % b_in == 0; history [C, K-1, 2] (the K-1 previous INPUT samples);
+    (gr, gi) the stacked [T1; T0] of :func:`stack_rational_operators`, on
+    x's device. Returns (y [C, T*b_out//b_in, 2], new_history),
+    new_history the last K-1 inputs. The block and its tail are one
+    operand against [T1; T0]: one product on the K1 kernel."""
+    c, t, _ = x.shape
+    if t % b_in:
+        raise ValueError(f"T={t} is not a multiple of the block {b_in}")
+    a = rational_operand(x, history, b_in, gr.shape[0] - b_in)
+    y = cgemm(a, gr, gi).reshape(c, (t // b_in) * b_out, 2)
+    return y, x[:, t - history.shape[1]:].contiguous()
+
+
+# ---------------------------------------------------------------------- #
+# IIR direct form (spuce iir_df equivalent) and its blocked state-space
+# form
+# ---------------------------------------------------------------------- #
+def iir_df(x, b, a, z0):
+    """Direct-form II transposed IIR over a block, on the host.
+
+    x: [N] (complex or real, any width — computed in double like spuce's
+    ``iir_df<Type, double>``); b: [nb] float64; a: [na] float64 (a[0]=1);
+    z0: [order] state (complex128 or float64). Numpy arrays or CPU
+    tensors. The recursion, per sample:
+
+        y = b0 x + z[0];   z' = b[1:] x - a[1:] y + (z[1:], 0)
+
+    run by ``scipy.signal.lfilter``, whose state is this z. Returns
+    (y, z_final) as CPU tensors of z0's dtype; the caller narrows y to the
+    stream dtype."""
+    from scipy.signal import lfilter
+
+    z = np.asarray(z0)
+    order = z.shape[0]
+    bp = np.zeros(order + 1)
+    ap = np.zeros(order + 1)
+    b, a = np.asarray(b, np.float64), np.asarray(a, np.float64)
+    bp[: b.shape[0]] = b
+    ap[: a.shape[0]] = a
+    xs = np.asarray(x).astype(z.dtype, copy=False)
+    y, zf = lfilter(bp, ap, xs, zi=z)
+    return (torch.from_numpy(np.asarray(y, z.dtype)),
+            torch.from_numpy(np.asarray(zf, z.dtype)))
+
+
+def iir_blocked_operators(b: np.ndarray, a: np.ndarray, L: int):
+    """Blocked state-space operators for the parallel IIR core.
+
+    The DF-II-T recursion is linear: z_{n+1} = A z_n + g x_n,
+    y_n = z_n[0] + b0 x_n, with
+      A[i, 0] = -a[i+1], A[i, i+1] = 1;  g[i] = b[i+1] - a[i+1] b0.
+    Over a block of L samples this is exact linear algebra (only float32
+    rounding at use):
+      y_block = Wz @ z_k + Hmat @ x_block         (per block, parallel)
+      z_{k+1} = M z_k + G @ x_block               (block recurrence)
+    where h[0] = b0, h[d] = (A^{d-1} g)[0] (the truncated impulse
+    response), Hmat[j, m] = h[j-m] (lower-triangular Toeplitz),
+    Wz[j] = (A^j)[0, :], M = A^L, G[:, j] = A^{L-1-j} g. The block
+    recurrence has a constant M, so it runs as a log-depth scan
+    (:func:`iir_block_scan`). All operators computed here in float64.
+
+    Returns (Hmat [L, L], Wz [L, O], M [O, O], G [O, L]) as float64.
+    """
+    b = np.asarray(b, np.float64)
+    a = np.asarray(a, np.float64)
+    order = max(len(b), len(a)) - 1
+    order = max(order, 1)
+    bp = np.zeros(order + 1)
+    bp[: len(b)] = b
+    ap = np.zeros(order + 1)
+    ap[: len(a)] = a
+    A = np.zeros((order, order))
+    A[:, 0] = -ap[1:]
+    if order > 1:
+        A[: order - 1, 1:] += np.eye(order - 1)
+    g = bp[1:] - ap[1:] * bp[0]
+    pw = [np.eye(order)]
+    for _ in range(L):
+        pw.append(A @ pw[-1])
+    h = np.zeros(L)
+    h[0] = bp[0]
+    for d in range(1, L):
+        h[d] = (pw[d - 1] @ g)[0]
+    Hmat = np.zeros((L, L))
+    for j in range(L):
+        Hmat[j, : j + 1] = h[: j + 1][::-1]
+    Wz = np.stack([pw[j][0, :] for j in range(L)])
+    M = pw[L]
+    G = np.stack([pw[L - 1 - j] @ g for j in range(L)], axis=1)
+    return Hmat, Wz, M, G
+
+
+def iir_scan_powers(M: np.ndarray, nb: int) -> np.ndarray:
+    """M^(2^j) for j < ceil(log2 nb), [J, O, O], by repeated squaring in
+    float64: the scan's operators for ``nb`` blocks."""
+    M = np.asarray(M, np.float64)
+    out = []
+    p = M
+    while (1 << len(out)) < nb:
+        out.append(p)
+        p = p @ p
+    return np.stack(out) if out else np.zeros((0,) + M.shape)
+
+
+def iir_block_scan(u: torch.Tensor, z0: torch.Tensor, M: torch.Tensor,
+                   powers: torch.Tensor) -> torch.Tensor:
+    """The block states z_{k+1} = M z_k + u_k, k = 0..nb-1, for u [nb, O,
+    P] and z0 [O, P]: [nb, O, P]. M z0 joins u_0, then a log-depth
+    doubling scan: in round j, w[s:] += M^s w[:-s] with s = 2^j and M^s
+    = ``powers[j]`` (:func:`iir_scan_powers`), so ceil(log2 nb) rounds of
+    one batched product each, not nb steps."""
+    w = u.clone()
+    w[0] += M @ z0
+    nb = w.shape[0]
+    j = 0
+    while (1 << j) < nb:
+        s = 1 << j
+        # the product reads the old w[:-s] in full before the add
+        w[s:] += torch.matmul(powers[j], w[:-s])
+        j += 1
+    return w
+
+
+def iir_blocked_step(xp: torch.Tensor, z0: torch.Tensor, Hmat, Wz, M, G,
+                     L: int, powers: torch.Tensor):
+    """One blocked-IIR quantum: xp [P, T] planes (T % L == 0), z0 [O, P]
+    state -> (y [P, T], z_final [O, P]). Fully parallel: the block
+    products (plain float32 ``torch.matmul`` / ``einsum``; TF32 stays
+    off) and the log-depth block scan over T/L blocks. ``powers``: the
+    scan's M^(2^j) for at least T/L blocks (:func:`iir_scan_powers`),
+    float32 on xp's device."""
+    P, t = xp.shape
+    nb = t // L
+    xb = xp.reshape(P, nb, L)
+    u = torch.einsum("pnl,ol->nop", xb, G)                 # [nb, O, P]
+    z_next = iir_block_scan(u, z0, M, powers)               # z_{k+1}
+    zs = torch.cat([z0[None], z_next[:-1]])                 # z_k per block
+    y = (torch.einsum("jo,kop->pkj", Wz, zs)
+         + torch.einsum("jm,pkm->pkj", Hmat, xb))
+    return y.reshape(P, t), z_next[-1]
 
 
 # ---------------------------------------------------------------------- #

@@ -11,6 +11,10 @@ package's conditions:
 - the block-Toeplitz matmul FIR (K1) followed by the FFT (K2);
 - the ``conv1d`` FIR, with decimation, followed by the FFT (K2).
 
+Beside them, not chosen by :class:`FirFftChain` (as in the JAX package):
+the split-stream (radix-R) step of :func:`make_split_step`, R products of
+width (W + pp) on K1 in place of one of width (nbins + prev_pad).
+
 The carry is ``hist [C, K-1, 2]``: the last K-1 raw inputs.
 
 Operator builders run the JAX package's float64 numpy code, so their
@@ -215,6 +219,134 @@ def fir_fft_combined_step(x, hist, gr, gi, nbins: int, k: int,
     spec = cgemm(a, gr, gi)
     return spec.reshape(c, t // nbins, nbins, 2), \
         x[:, t - (k - 1):].contiguous()
+
+
+# ---------------------------------------------------------------------- #
+# Split-stream (radix-R) combined operator. One level of radix-R
+# decimation in frequency applied to the FIR output, with the stream
+# combines moved to the FIR input (the weights W_R^{mr} are scalars, so
+# they commute with the convolution):
+#
+#     spec[R k' + r] = DFT_W( W_N^{j r} . conv(h, v_r)[j] )[k'],
+#     v_r[j] = sum_m W_R^{m r} x[m W + j],        W = nbins / R,
+#
+# so each stream runs the combined Toeplitz*DFT operator at width W with
+# a pp >= K-1 previous tail: (W + pp) complex MACs a sample instead of
+# (nbins + prev_pad). The stream histories decompose over raw samples,
+#     hist_r[w] = q_tail[w-1, R-1] + sum_{m>=1} W_R^{m r} q_tail[w, m-1],
+# with q_tail[w, m] the last K-1 samples of quarter m of window w, so the
+# carry is the combined step's: the last K-1 raw inputs.
+# ---------------------------------------------------------------------- #
+def split_stream_fir_fft_operators(taps, nbins: int, R: int, pp: int):
+    """Per-stream (G0 [W, W], G1 [pp, W]) float32 plane pairs,
+    G_r = Toeplitz(h) . diag(W_N^{r j}) . F_W, and the W_R stream weights.
+    Returns (ops, wr): ops a length-R list of ((g0r, g0i), (g1r, g1i)),
+    wr the [R, R] complex128 numpy weights."""
+    h = np.asarray(taps, np.complex128)
+    k = len(h)
+    W = nbins // R
+    if not k - 1 <= pp <= W:
+        raise ValueError(f"need K-1 <= pp <= W: K={k}, pp={pp}, W={W}")
+    t0 = np.zeros((W, W), np.complex128)
+    t1 = np.zeros((pp, W), np.complex128)
+    for d in range(k):
+        for j in range(W):
+            i = j - d
+            if i >= 0:
+                t0[i, j] = h[d]
+            else:
+                t1[pp + i, j] = h[d]
+    f = np.exp(-2j * np.pi * np.outer(np.arange(W), np.arange(W)) / W)
+    ops = []
+    for r in range(R):
+        tw = np.exp(-2j * np.pi * r * np.arange(W) / nbins)
+        df = tw[:, None] * f
+        ops.append((_planes(t0 @ df), _planes(t1 @ df)))
+    wr = np.exp(-2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R)
+    return ops, wr
+
+
+def split_operand(x: torch.Tensor, hist: torch.Tensor, wr: torch.Tensor,
+                  nbins: int, k: int, pp: int) -> torch.Tensor:
+    """The split step's R left operands [R, C * T//nbins, pp + W, 2]:
+    stream r's [hist_r | v_r] for every window, hist_r behind pp - (K-1)
+    zeros. All R streams come from one complex product of the [R, R]
+    weights ``wr`` (complex64) with the windows' R quarters, each behind
+    its history term (the zeros stay zero)."""
+    c, t, _ = x.shape
+    R = wr.shape[0]
+    nw, W, k1 = t // nbins, nbins // R, k - 1
+    xq = torch.view_as_complex(x.contiguous()).reshape(c, nw, R, W)
+    qt = xq[..., W - k1:]                                 # [c, nw, R, k1]
+    # q_tail[w-1, R-1], the stream carry before window 0, then
+    # q_tail[w, m-1] for m >= 1: quarter m's history term
+    prev_last = torch.cat([torch.view_as_complex(hist.contiguous())[:, None],
+                           qt[:, :-1, R - 1]], dim=1)     # [c, nw, k1]
+    a = torch.cat([xq.new_zeros(R, c, nw, pp - k1),
+                   torch.cat([prev_last[None], qt[:, :, :R - 1]
+                              .permute(2, 0, 1, 3)]),
+                   xq.permute(2, 0, 1, 3)], dim=-1)       # [R, c, nw, pp+W]
+    s = torch.matmul(wr, a.reshape(R, -1))
+    return torch.view_as_real(s).reshape(R, c * nw, pp + W, 2)
+
+
+def split_step(x: torch.Tensor, hist: torch.Tensor, wr: torch.Tensor,
+               gr: torch.Tensor, gi: torch.Tensor, nbins: int, k: int,
+               pp: int):
+    """One split-stream FIR+FFT step: x [C, T, 2] -> (spectra
+    [C, T//nbins, nbins, 2], new_hist [C, k-1, 2]). ``gr``, ``gi``
+    [R, pp + W, W] hold each stream's stacked [G1; G0]; stream r is one
+    complex product on the K1 kernel, its output bins r, R + r, ...."""
+    c, t, _ = x.shape
+    R = wr.shape[0]
+    a = split_operand(x, hist, wr, nbins, k, pp)
+    specs = a.new_empty(R, a.shape[1], nbins // R, 2)
+    for r in range(R):
+        cgemm(a[r], gr[r], gi[r], out=specs[r])
+    # interleave, spec[R k' + r] = specs[r][k']: one transposing copy of
+    # complex elements (torch.stack along an inner axis moved the 8-byte
+    # pairs ~14x slower on an H100)
+    spec = torch.view_as_complex(specs).permute(1, 2, 0).contiguous()
+    return (torch.view_as_real(spec).reshape(c, t // nbins, nbins, 2),
+            x[:, t - (k - 1):].contiguous())
+
+
+class SplitFirFftChain(nn.Module):
+    """The split-stream FIR -> windowed FFT step (:func:`split_step`) with
+    its operators as buffers on ``device`` (the card unless the caller
+    names another): ``wr`` [R, R] complex64, ``gr``, ``gi``
+    [R, pp + W, W]. Called as ``run(x, carry) -> (spectra, carry)``, the
+    carry being the last K-1 raw inputs, as :class:`FirFftChain`'s."""
+
+    def __init__(self, taps, nbins: int, R: int, pp: int = 64, device=None):
+        super().__init__()
+        taps = np.asarray(taps)
+        self.nbins, self.k, self.R, self.pp = nbins, len(taps), R, pp
+        ops, wr = split_stream_fir_fft_operators(taps, nbins, R, pp)
+        stacked = [stack_combined_operators(g0, g1) for g0, g1 in ops]
+        device = placement.resolve(device)
+        self.register_buffer("wr", torch.from_numpy(
+            wr.astype(np.complex64)).to(device))
+        self.register_buffer("gr", torch.stack([s[0] for s in stacked])
+                             .to(device))
+        self.register_buffer("gi", torch.stack([s[1] for s in stacked])
+                             .to(device))
+
+    def forward(self, x: torch.Tensor, carry: torch.Tensor):
+        return split_step(x, carry, self.wr, self.gr, self.gi, self.nbins,
+                          self.k, self.pp)
+
+
+def make_split_step(taps, nbins: int, R: int, pp: int = 64, device=None):
+    """The split-stream step and its initial carry, as the JAX package's
+    ``make_split_step``: returns (run, hist0) with ``run(x [C, T, 2],
+    hist [C, K-1, 2]) -> (spec [C, T//nbins, nbins, 2], new_hist)`` a
+    :class:`SplitFirFftChain` and hist0 zeros [1, K-1, 2] (the caller
+    sizes C), both on ``device`` (default: the card)."""
+    device = placement.resolve(device)
+    run = SplitFirFftChain(taps, nbins, R, pp, device)
+    return run, torch.zeros((1, run.k - 1, 2), dtype=torch.float32,
+                            device=device)
 
 
 def circ_correction_operators(taps, nbins: int):

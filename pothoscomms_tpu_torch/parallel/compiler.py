@@ -19,8 +19,11 @@ jits the composition; torch runs eagerly, so the composed step is a plain
 call, and each core's hand kernels (e.g. the envelope's E1) launch from
 inside it. Carries are tuples (one entry per block).
 
-Not ported yet: ``compile_chain_sharded`` (channel sharding across
-cards, with ``torch.distributed``; ROADMAP Queue 1 item 15).
+Every ``device_core`` of the port composes here: the FIR (1:1 and
+rational), the IIR filter, the FFT, the FM discriminator, DC removal and
+the envelope follower. Not ported yet: ``compile_chain_sharded`` (channel
+sharding across cards, with ``torch.distributed``; ROADMAP Queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -69,7 +72,9 @@ def chain_carry_from_numpy(carry, device=None):
     """A JAX ``compile_chain`` carry (its tuple of per-block carries, each
     an array or a tuple of arrays, brought to numpy as float32) -> the
     same nesting of tensors on ``device`` (default: the card), so both
-    packages can run on from one mid-stream state."""
+    packages can run on from one mid-stream state. The layouts are the
+    same in both: a rational FIR's [C, K-1 + r, 2] (history, then the
+    input-phase residue), an IIR filter's [O, C, 2] or [O, C]."""
     return operators_from_numpy(carry, device)
 
 

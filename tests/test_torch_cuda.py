@@ -515,3 +515,128 @@ def test_fm_topology_on_card_matches_cpu(dev):
     assert topo._segments[0].engage_count >= 1 and launched >= 2
     assert got.shape == ref.shape == x.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,n,m", [(4096, 320, 256), (4096, 192, 128),
+                                   (4096, 128, 64), (4096, 288, 384),
+                                   (333, 192, 128)])
+def test_cgemm_at_split_and_resampler_shapes(dev, b, n, m):
+    """K1 at the split step's per-stream shapes (pp + W, W for R = 4, 8,
+    16 at 1024 bins, pp = 64) and the 3:2 resampler's (32 + 256, 384),
+    on the tensor cores, against its plain version."""
+    rng = np.random.default_rng(b + n + m)
+    a = _normal(rng, b, n, 2).to(dev)
+    gr, gi = _normal(rng, n, m).to(dev), _normal(rng, n, m).to(dev)
+    assert variant(n, m) == TENSOR_CORES
+    before = cgemm.launches_by_variant[TENSOR_CORES]
+    got = cgemm(a, gr, gi)
+    buf = torch.full((3, b, m, 2), 7.0, device=dev)
+    into = cgemm(a, gr, gi, out=buf[1])       # a slot of one buffer
+    torch.cuda.synchronize()
+    assert cgemm.launches_by_variant[TENSOR_CORES] == before + 2
+    assert _rel(got, cgemm_plain(a, gr, gi)) < 1e-5
+    assert into.data_ptr() == buf[1].data_ptr() and torch.equal(into, got)
+    assert bool((buf[0] == 7.0).all() and (buf[2] == 7.0).all())
+
+
+@pytest.mark.parametrize("R", [4, 8, 16])
+def test_split_step_on_card_matches_cpu(dev, R):
+    """make_split_step on the card (R K1 launches a step) against the
+    same step on the CPU, two chained steps, carry exact."""
+    from pothoscomms_tpu_torch.parallel.chain import make_split_step
+
+    rng = np.random.default_rng(R)
+    taps = (rng.normal(size=64) + 1j * rng.normal(size=64)) / 64
+    C, T, NB = 8, 8192, 1024
+    run_c, _ = make_split_step(taps, NB, R, 64, device=dev)
+    run_h, _ = make_split_step(taps, NB, R, 64, device="cpu")
+    h_c = torch.zeros(C, 63, 2, device=dev)
+    h_h = torch.zeros(C, 63, 2)
+    before = cgemm.launches
+    for _ in range(2):
+        x = _normal(rng, C, T, 2)
+        s_c, h_c = run_c(x.to(dev), h_c)
+        s_h, h_h = run_h(x, h_h)
+        assert _rel(s_c.cpu(), s_h) < 1e-5
+        assert torch.equal(h_c.cpu(), h_h)
+    torch.cuda.synchronize()
+    assert cgemm.launches == before + 2 * R
+
+
+def _config3_blocks(taps):
+    from pothoscomms_tpu_torch import BlockRegistry
+
+    fir = BlockRegistry.make("/comms/fir_filter", "complex_float32",
+                             "COMPLEX")
+    fir.set_taps(taps)
+    fir.set_decimation(2)
+    fir.set_interpolation(3)
+    return [fir, BlockRegistry.make("/comms/iir_filter", "complex_float32")]
+
+
+@pytest.mark.parametrize("T", [1 << 15, 768])
+def test_resampler_chain_on_card_matches_cpu(dev, T):
+    """compile_chain([FIR 3:2, IIR]) on the card (one K1 launch a step;
+    the IIR at L = 256 for T = 2^15, 128 for 768) against the CPU."""
+    from pothoscomms_tpu_torch.parallel.compiler import compile_chain
+
+    rng = np.random.default_rng(T)
+    taps = (rng.normal(size=60) + 1j * rng.normal(size=60)) / 60
+    step_c, carry_c = compile_chain(_config3_blocks(taps), 4, device=dev)
+    step_h, carry_h = compile_chain(_config3_blocks(taps), 4, device="cpu")
+    before = cgemm.launches
+    for _ in range(2):
+        x = _normal(rng, 4, T, 2)
+        y_c, carry_c = step_c(x.to(dev), carry_c)
+        y_h, carry_h = step_h(x, carry_h)
+        assert _rel(y_c.cpu(), y_h) < 1e-5
+        for a, b in zip(carry_c, carry_h):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                       atol=1e-5)
+    torch.cuda.synchronize()
+    assert cgemm.launches == before + 2
+
+
+def test_config3_designer_topology_on_card(dev):
+    """FIRDesigner -> FIR(3:2) -> IIR <- IIRDesigner on
+    Topology(device="cuda:0"), fused, against the same topology on the
+    CPU."""
+    from pothoscomms_tpu_torch import BlockRegistry, Topology
+    from pothoscomms_tpu_torch.core.fixtures import CollectorSink, FeederSource
+
+    rng = np.random.default_rng(19)
+    n = (1 << 17) + 11
+    x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
+
+    def run(device):
+        fird = BlockRegistry.make("/comms/fir_designer")
+        fird.set_band_type("LOW_PASS")
+        fird.set_filter_type("SINC")
+        fird.set_frequency_lower(0.2)
+        fird.set_num_taps(60)
+        iird = BlockRegistry.make("/comms/iir_designer")
+        iird.set_frequency_lower(0.25)
+        fir, iir = _config3_blocks([1.0])
+        fir.set_wait_taps(True)
+        iir.set_wait_taps(True)
+        feed = FeederSource("complex_float32")
+        sink = CollectorSink("complex_float32")
+        topo = Topology(device=device)
+        topo.fuse_threshold = 4096
+        topo.connect(fird, "tapsChanged", fir, "setTaps")
+        topo.connect(iird, "tapsChanged", iir, "setTaps")
+        for a, b in ((feed, fir), (fir, iir), (iir, sink)):
+            topo.connect(a, 0, b, 0)
+        feed.feed_buffer(x)
+        topo.commit()
+        assert topo.wait_inactive(timeout=60.0)
+        return sink.get_buffer(), topo
+
+    before = cgemm.launches
+    got, topo = run(dev)
+    torch.cuda.synchronize()
+    launched = cgemm.launches - before
+    ref, _ = run("cpu")
+    assert topo._segments[0].engage_count >= 1 and launched >= 1
+    assert got.shape == ref.shape and len(got) > 0
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)

@@ -26,6 +26,16 @@ def _fm_blocks():
     return [demod, dc, env]
 
 
+def _config3_blocks():
+    fir = pkg.BlockRegistry.make("/comms/fir_filter", "complex_float32",
+                                 "COMPLEX")
+    fir.set_taps(np.ones(60) / 60)
+    fir.set_decimation(2)
+    fir.set_interpolation(3)
+    return [fir, pkg.BlockRegistry.make("/comms/iir_filter",
+                                        "complex_float32")]
+
+
 def _zeros(*shape):
     return np.zeros(shape, np.float32)
 
@@ -39,6 +49,14 @@ ENTRY_POINTS = {
     "make_fused_chain": lambda: ff.make_fused_chain(np.ones(8) / 8, 1024),
     "compile_chain": lambda: compiler.compile_chain(_fm_blocks(), 2),
     "device_core": lambda: _fm_blocks()[1].device_core(2),
+    "make_split_step": lambda: chain.make_split_step(np.ones(8) / 8, 256,
+                                                     4, 16),
+    "SplitFirFftChain": lambda: chain.SplitFirFftChain(np.ones(8) / 8, 256,
+                                                       8, 16),
+    "compile_chain_config3": lambda: compiler.compile_chain(
+        _config3_blocks(), 2),
+    "rational_device_core": lambda: _config3_blocks()[0].device_core(2),
+    "iir_device_core": lambda: _config3_blocks()[1].device_core(2),
     "operators_from_numpy": lambda: chain.operators_from_numpy(
         (_zeros(3, 4), (_zeros(2), _zeros(5)))),
     "carry_from_numpy": lambda: chain.carry_from_numpy(_zeros(2, 7, 2)),
