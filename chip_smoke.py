@@ -7,9 +7,11 @@ Phases, one or more lines each:
   1. device, versions, TF32 flags (both set False); every entry point of
      the port called with no device (Topology, a lone block's device,
      fir_fft_chain, make_fused_chain, compile_chain, the *_from_numpy
-     converters) lands on the card;
-  2. nvcc build of the port's kernels from pothoscomms_tpu_torch/csrc/,
-     one nvcc per source, all started together;
+     converters, a scrambler's fused core, make_sync_search,
+     make_hamming_profile, make_channel_search) lands on the card;
+  2. nvcc build of the port's seven kernels from
+     pothoscomms_tpu_torch/csrc/, one nvcc per source, all started
+     together;
   3. K1 (cgemm) against its plain PyTorch version on the card, at shapes
      that take each of its two variants (tensor cores, SIMT; the SIMT one
      also at the main path's shape, through an `a` off a 16-byte
@@ -117,7 +119,33 @@ Phases, one or more lines each:
      engages for one 2^24 pull (one K1 launch), the rest drains
      streaming; the output length, windows at the start, inside the
      pull, at its boundary and at the end against the float64 oracle
-     (atol 2e-4), and the wall time from commit() to wait_inactive().
+     (atol 2e-4), and the wall time from commit() to wait_inactive();
+ 20. path "modem_block_api": benches/bench_suite.py bench_digital_modem_bulk's
+     chain, feeder -> /comms/scrambler (additive, 0x8E) ->
+     bits_to_symbols(2, MSBit) -> QPSK symbol_mapper -> symbol_slicer ->
+     symbols_to_bits -> descrambler -> a sink keeping every buffer and
+     label, on Topology() (the card), 2^22 random bits: one engaged
+     six-block segment (the scramblers as the blocked GF(2) step) returns
+     the input bit for bit; again with both scramblers multiplicative, and
+     with a label every 65536 bits, which must come out index-adjusted as
+     the streaming path adjusts them while the segment stays engaged; the
+     wall time from commit() to wait_inactive() with where it went;
+ 21. path "link": parallel/link.run_link at 256 channels x 4000-bit frames
+     (run_sharded_link's per-channel impairments, noise 0.001): every
+     channel bit-exact; S1 (sync_search, the frame-sync search) launched
+     once for the [256, 32768] batch and held against its plain version
+     and a float64 oracle of its formulas on 8 channels; the TX, search
+     and RX decode times, S1 alone by events and on the card beside its
+     plain version and its bound;
+ 22. path "frame_sync_block_api": 64 frames of 4000 bits (tx_waveform,
+     apply_channel) through /comms/frame_sync (TIMING) -> collector on
+     Topology(): 64 frame starts, every frame's payload exact after
+     slicing and descrambling with the link's pilot alignment, every S1
+     launch shape held to the oracle on that launch's input, the same
+     stream on Topology(device="cpu") (the plain search) equal in labels
+     and within 1e-5 in symbols; then bench_digital_link's loopback,
+     packet_to_stream -> preamble_framer -> preamble_correlator ->
+     stream_to_packet, 2 x 20 packets of 256 bits, all 40 exact.
 Then a JSON line of per-kernel results (with each kernel's bound_ms and
 bound_by, from this run's shapes and the H100's published peaks, and
 library_ms, one PyTorch call computing the same function, or null) and,
@@ -182,7 +210,7 @@ def main() -> int:
     import probe_fft_layout
     import probe_layout
     import probe_stream_ceiling
-    from probe_stream_ceiling import device_ms, median_ms
+    from probe_stream_ceiling import device_ms, event_ms, median_ms
 
     from pothoscomms_tpu_torch import BlockRegistry, Topology
     from pothoscomms_tpu_torch.kernels import build
@@ -191,6 +219,8 @@ def main() -> int:
         variant)
     from pothoscomms_tpu_torch.kernels.envelope import (envelope_rows,
                                                         envelope_rows_plain)
+    from pothoscomms_tpu_torch.kernels.sync_search import (sync_search,
+                                                           sync_search_plain)
     from pothoscomms_tpu_torch.kernels.layout_move import (
         MODES, layout_move, layout_move_plain)
     from pothoscomms_tpu_torch.kernels.stream_scale import (
@@ -207,6 +237,9 @@ def main() -> int:
     from pothoscomms_tpu_torch.parallel.compiler import (
         chain_carry_from_numpy, compile_chain)
     from pothoscomms_tpu_torch.parallel.fft import fft_planar
+    from pothoscomms_tpu_torch.ops.framing import (make_hamming_profile,
+                                                   make_sync_search)
+    from pothoscomms_tpu_torch.parallel.link import make_channel_search
 
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(0)
@@ -245,13 +278,18 @@ def main() -> int:
 
     def device_types(obj):
         """The device types of every tensor in obj (tensors, modules,
-        nested tuples)."""
+        nested tuples, the tensors a closure holds)."""
         if isinstance(obj, torch.Tensor):
             return {obj.device.type}
         if isinstance(obj, torch.nn.Module):
             return {b.device.type for b in obj.buffers()}
         if isinstance(obj, (tuple, list)):
             return set().union(*(device_types(o) for o in obj))
+        if callable(obj) and getattr(obj, "__closure__", None):
+            return set().union(*(device_types(c.cell_contents)
+                                 for c in obj.__closure__
+                                 if isinstance(c.cell_contents,
+                                               torch.Tensor)))
         return set()
 
     z = np.zeros
@@ -274,7 +312,14 @@ def main() -> int:
             (z((2, 1, 2), np.float32),))),
         "fused_consts_from_numpy": device_types(fused_consts_from_numpy(
             (None, None, None, (z((8, 128), np.float32),) * 2,
-             (z((64, 1024), np.float32),) * 2)))}
+             (z((64, 1024), np.float32),) * 2))),
+        "scrambler fuse_export": device_types(BlockRegistry.make(
+            "/comms/scrambler").fuse_export(1)),
+        "make_sync_search": device_types(make_sync_search([1.0], 20, 4,
+                                                          0.01)),
+        "make_hamming_profile": device_types(make_hamming_profile([1, 0])),
+        "make_channel_search": device_types(make_channel_search(
+            [1.0], 20, 4, 0.01, 100)[0])}
     print("[1] entry points with no device land on: "
           + ", ".join(f"{k} {sorted(v)}" for k, v in defaults.items()))
     for name, kinds in defaults.items():
@@ -283,7 +328,7 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     sources = ("cgemm", "fft", "fir_fft_fused", "stream_scale",
-               "layout_move", "envelope")
+               "layout_move", "envelope", "sync_search")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load, sources))
     print(f"[2] built {', '.join(s + '.cu' for s in sources)} with "
@@ -418,7 +463,8 @@ def main() -> int:
     wrappers = {"cgemm": cgemm, "tf32_operator": tf32_operator,
                 "fft_c2c": fft_c2c,
                 "fir_fft_fused": fir_fft_fused, "stream_scale": stream_scale,
-                "layout_move": layout_move, "envelope": envelope_rows}
+                "layout_move": layout_move, "envelope": envelope_rows,
+                "sync_search": sync_search}
 
     def zero_counts():
         for w in wrappers.values():
@@ -1665,12 +1711,370 @@ def main() -> int:
               f"{sb['collect']:.3f} s, drain {sb['drain']:.3f} s, rest "
               f"{rest:.3f} s")
 
+    # -- 20. path "modem_block_api": the scrambled modem chain -----------
+    from pothoscomms_tpu_torch.core.block import Block
+    from pothoscomms_tpu_torch.core.dtypes import DType
+    from pothoscomms_tpu_torch.core.labels import Label
+
+    class KeepSink(Block):
+        """Keeps every buffer it gets (device chunks as they come) and
+        every label, at its index in the collected stream."""
+
+        def __init__(self):
+            super().__init__()
+            self.setup_input(0, DType.parse("uint8"))
+            self.input(0).set_capacity(None)
+            self.parts, self.labels, self.count = [], [], 0
+
+        def work(self):
+            port = self.input(0)
+            n = port.elements()
+            if n:
+                self.labels += [lb.shifted(self.count) for lb in port.labels
+                                if lb.index < n]
+                port.labels = [lb for lb in port.labels if lb.index >= n]
+                self.parts.extend(port.take(n))
+                self.count += n
+
+        def get_buffer(self):
+            return np.concatenate([np.asarray(p) for p in self.parts])
+
+    QPSK = np.array([1 + 1j, -1 + 1j, -1 - 1j, 1 - 1j]) / np.sqrt(2)
+    NM, EVERY = 1 << 22, 65536
+    bits20 = np.random.default_rng(20).integers(0, 2, NM).astype(np.uint8)
+    labels20 = [Label("frame", i, EVERY * i + 5, 1) for i in range(NM // EVERY)]
+
+    def modem_run(mode, labels=None):
+        """benches/bench_suite.py bench_digital_modem_bulk's chain on
+        Topology() (the card), fed the 2^22 bits in one buffer."""
+        blocks = [BlockRegistry.make("/comms/scrambler"),
+                  BlockRegistry.make("/comms/bits_to_symbols", 2, "MSBit"),
+                  BlockRegistry.make("/comms/symbol_mapper",
+                                     "complex_float32"),
+                  BlockRegistry.make("/comms/symbol_slicer",
+                                     "complex_float32"),
+                  BlockRegistry.make("/comms/symbols_to_bits", 2, "MSBit"),
+                  BlockRegistry.make("/comms/descrambler")]
+        for b in (blocks[0], blocks[-1]):
+            b.set_mode(mode)
+            b.set_poly(0x8E)
+        blocks[2].set_map(QPSK)
+        blocks[3].set_map(QPSK)
+        feed, sink = FeederSource("uint8"), KeepSink()
+        topo = Topology()
+        chain = [feed] + blocks + [sink]
+        for a, b in zip(chain[:-1], chain[1:]):
+            topo.connect(a, 0, b, 0)
+        feed.feed_buffer(bits20, labels)
+        secs = {"engage": 0.0, "pull": 0.0, "fused": 0.0}
+
+        def timed(fn, key):
+            def call(*args):
+                t = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                secs[key] += time.perf_counter() - t
+                return out
+            return call
+
+        t0 = time.perf_counter()
+        topo.commit()
+        seg = topo._segments[0]
+        seg.try_engage = timed(seg.try_engage, "engage")
+        seg._pull = timed(seg._pull, "pull")
+        seg.work = timed(seg.work, "fused")
+        check(topo.wait_inactive(timeout=300.0), "modem block path did not "
+                                                 "finish")
+        secs["wall"] = time.perf_counter() - t0
+        secs["collect"] = sink._work_time
+        secs["drain"] = sum(b._work_time for b in blocks) - secs["fused"]
+        secs["step"] = secs["fused"] - secs["pull"]
+        return sink.get_buffer(), sink.labels, topo._segments, secs
+
+    zero_counts()
+    runs20 = {"additive": modem_run("additive"),
+              "multiplicative": modem_run("multiplicative"),
+              "additive, labels": modem_run("additive", labels20)}
+    launches20 = read_counts()
+    for label, (out, lbs, segs, sb) in runs20.items():
+        seg = segs[0]
+        print(f"[20] block API scrambler -> bits_to_symbols(2) -> QPSK "
+              f"mapper -> slicer -> symbols_to_bits -> descrambler "
+              f"({label}) on {seg.topology.device}, {NM} bits: "
+              f"{len(segs)} segment of {len(seg.blocks)} blocks engaged "
+              f"{seg.engage_count}x, fused_elements {seg.fused_elements}, "
+              f"{len(lbs)} labels out")
+        check(len(segs) == 1 and len(seg.blocks) == 6
+              and seg.engage_count == 1 and seg.fused_elements == NM,
+              f"the modem segment ({label}) did not run as one engaged "
+              f"six-block segment")
+        check(seg.topology.device.type == "cuda", "Topology() is not on "
+                                                  "the card")
+        check(out.shape == bits20.shape and np.array_equal(out, bits20),
+              f"the modem chain ({label}) did not return its input bit "
+              f"for bit")
+    # the streaming path's adjustment: bits_to_symbols(2) takes index // 2
+    # and width // 2 (at least 1), symbols_to_bits(2) doubles both
+    exp20 = [(lb.id, lb.data, lb.index // 2 * 2, 2) for lb in labels20]
+    got20 = [(lb.id, lb.data, lb.index, lb.width)
+             for lb in runs20["additive, labels"][1]]
+    check(got20 == exp20, f"labels came out as {got20[:3]}..., expected "
+                          f"{exp20[:3]}...")
+    print(f"[20] {len(got20)} labels (every {EVERY} bits) carried through "
+          f"the engaged segment, index-adjusted as the streaming path "
+          f"adjusts them; launches {launches20}")
+    for label, (_, _, _, sb) in runs20.items():
+        rest = sb["wall"] - sb["engage"] - sb["fused"] - sb["collect"] \
+            - sb["drain"]
+        print(f"[20] on {card}: {label} run {sb['wall']:.3f} s from "
+              f"commit() to wait_inactive(), {NM / sb['wall'] / 1e6:.1f} "
+              f"Mbit/s; engage {sb['engage']:.3f} s, pulls (H2D) "
+              f"{sb['pull']:.3f} s, fused steps {sb['step']:.3f} s, collect "
+              f"{sb['collect']:.3f} s, drain {sb['drain']:.3f} s, rest "
+              f"{rest:.3f} s")
+    del runs20
+
+    # -- 21. path "link": run_link at 256 channels x 4000-bit frames ------
+    from pothoscomms_tpu_torch.core.testing import (search_agreement,
+                                                    sync_search_f64)
+    from pothoscomms_tpu_torch.ops import framing as framing_ops
+    from pothoscomms_tpu_torch.parallel.link import (align_payload,
+                                                     apply_channel, run_link,
+                                                     tx_waveform)
+
+    # noise 0.001: at 0.01 the preamble's frequency estimate is too coarse
+    # for 16064-sample payloads, in the JAX link as here (channels 0, 2, 3
+    # of 8 fail in both); at 0.003 channel 96 of 256 fails
+    CL, NBL, NOISE = 256, 4000, 0.001
+    s1_shapes21 = []
+    zero_counts()
+    with watched(framing_ops, "sync_search",
+                 lambda args, out: s1_shapes21.append(tuple(args[0].shape))):
+        res21 = run_link(CL, NBL, seed=21, noise=NOISE)
+    launches21 = read_counts()
+    sec21 = res21["seconds"]
+    n21, x21 = res21["n_pad"], res21["x"]
+    print(f"[21] run_link {CL} channels x {NBL}-bit frames (noise {NOISE}) "
+          f"on {x21.device}: {sum(res21['bit_exact'])} of {CL} channels "
+          f"bit-exact; S1 launches {launches21['sync_search']} at "
+          f"{s1_shapes21}; launches {launches21}")
+    check(res21["all_exact"], f"link channels not exact: "
+          f"{[c for c, ok in enumerate(res21['bit_exact']) if not ok]}")
+    check(launches21["sync_search"] == 1
+          and s1_shapes21 == [(CL, res21["lp"], 2)],
+          "the link did not launch S1 once for the whole batch")
+    pre21 = torch.tensor([[1.0, 0.0]], device=dev)
+    args21 = (0.01, 80, 80, 4, 1, n21)
+    got21 = sync_search(x21, pre21, *args21)
+    plain21 = sync_search_plain(x21, pre21, *args21)
+    torch.cuda.synchronize()
+    # S1's max |d| is that of scale against its plain version over every
+    # offset (the other arrays' are held to the oracle below)
+    s1_abs = (got21[0] - plain21[0]).abs().max().item()
+    d_peak = (got21[3] != plain21[3]).sum().item()
+    chans21 = [0, 1, 37, 96, 128, 200, 254, 255]
+    ref21 = sync_search_f64(x21[chans21].cpu().numpy(), [1.0], *args21)
+    s1_oracle = {}
+    for label, arrays in (("S1", got21), ("plain", plain21)):
+        agree = search_agreement([a[chans21].cpu().numpy() for a in arrays],
+                                 ref21)
+        s1_oracle[label] = agree
+        print(f"[21] {label} vs float64 oracle on channels {chans21}: "
+              f"{agree}")
+        check(agree["scale_zero_mismatch"] == 0 and agree["peak_mismatch"]
+              == 0 and agree["scale_rel"] <= 1e-5
+              and agree["delta_fc_abs"] <= 1e-5 and agree["phase_abs"]
+              <= 2e-3, f"{label} disagrees with the float64 oracle")
+    print(f"[21] S1 vs its plain version at [{CL}, {res21['lp']}, 2], "
+          f"n={n21}: max|d scale| {s1_abs:.3e}, corr_peak differs at "
+          f"{d_peak} of {CL * n21} offsets")
+    # the bound: per offset 17 operations a correlation tap (the angle, a
+    # cos and a sin, two complex products, the sum), 8 a term of K, one a
+    # term of the two window sums and ~20 for the rest (divisions, two
+    # atan2, the magnitude); x read once, four [C, n] float32 outputs
+    ops_per_offset = 17 * 80 + 8 * (40 - 2 * 4) + 2 * (40 - 4) + 20
+    s1_bound = bound(x21.numel() * 4 + 4 * CL * n21 * 4,
+                     CL * n21 * ops_per_offset)
+    pool21 = [(x21,)]
+    s1_ms = event_ms(lambda x: sync_search(x, pre21, *args21), pool21,
+                     calls=20)
+    s1_device_ms = device_ms(lambda x: sync_search(x, pre21, *args21),
+                             pool21, calls=20, per_call=1,
+                             floor_ms=s1_bound[0])
+    s1_plain_ms = event_ms(lambda x: sync_search_plain(x, pre21, *args21),
+                           pool21, calls=3)
+    print(f"[21] on {card}: TX {sec21['tx']:.3f} s ({CL} topologies on the "
+          f"host), upload {sec21['upload']:.3f} s, search "
+          f"{sec21['search'] * 1e3:.3f} ms (one S1 launch and the arrays' "
+          f"copy back), RX decode on the host {sec21['rx_decode']:.3f} s; "
+          f"S1 alone {s1_ms:.4f} ms ({f4(s1_device_ms)} on the card), bound "
+          f"{s1_bound[0]:.4f} ms by {s1_bound[1]} ({s1_bound[0] / s1_ms:.1%}"
+          f" of it), plain version {s1_plain_ms:.3f} ms "
+          f"({s1_plain_ms / s1_ms:.1f}x S1)")
+    del got21, plain21, res21, x21
+
+    # -- 22. path "frame_sync_block_api": FrameSync and the loopback ------
+    NF22 = 64
+    rng22 = np.random.default_rng(22)
+    bits22 = [rng22.integers(0, 2, NBL).astype(np.uint8) for _ in range(NF22)]
+    frames22 = [apply_channel(
+        tx_waveform(b), gap_pre=300 + 40 * f, gap_post=500 - 40 * (f % 8),
+        attenuation=0.4 + 0.05 * (f % 8), phase=0.3 * f,
+        freq_offset=1e-4 * ((f % 5) - 2), noise=NOISE,
+        rng=np.random.default_rng(122 + f)) for f, b in enumerate(bits22)]
+    stream22 = np.concatenate(frames22)
+    s1_first22, s1_shapes22 = {}, []
+
+    def note_s1(args, out):
+        """Notes each S1 launch's shape, and keeps the first input of each
+        shape to hold it against the oracle after the run."""
+        key = tuple(args[0].shape)
+        if key not in s1_first22:
+            s1_first22[key] = [args[0].clone(), args[1].clone()] \
+                + list(args[2:])
+        s1_shapes22.append(key)
+
+    def frame_sync_run(device=None):
+        fs = BlockRegistry.make("/comms/frame_sync", "complex_float32")
+        fs.set_output_mode("TIMING")
+        fs.set_preamble([1.0])
+        fs.set_symbol_width(20)
+        fs.set_data_width(4)
+        fs.set_frame_start_id("rxStart")
+        fs.set_frame_end_id("")
+        fs.set_input_threshold(0.01)
+        feed = FeederSource("complex_float32")
+        sink = CollectorSink("complex_float32")
+        topo = Topology(device=device)  # None: the card, by default
+        topo.connect(feed, 0, fs, 0)
+        topo.connect(fs, 0, sink, 0)
+        # the feeder gets ahead of the search by at most one frame: each
+        # search sees one or two frames (a search over the whole stream
+        # would take minutes on the CPU)
+        fs.input(0).set_capacity(20000)
+        for fr in frames22:
+            feed.feed_buffer(fr)
+        t0 = time.perf_counter()
+        topo.commit()
+        check(topo.wait_inactive(timeout=300.0), "frame sync path did not "
+                                                 "finish")
+        return sink.get_buffer(), sink.get_labels(), \
+            time.perf_counter() - t0, topo.device
+
+    zero_counts()
+    with watched(framing_ops, "sync_search", note_s1):
+        out22, lbs22, wall22, dev22 = frame_sync_run()
+    launches22 = read_counts()
+    starts22 = [lb for lb in lbs22 if lb.id == "rxStart"]
+    shapes22 = sorted(set(s1_shapes22))
+    print(f"[22] block API feeder -> /comms/frame_sync (TIMING) -> collector "
+          f"on {dev22}, {NF22} frames of {NBL} bits ({len(stream22)} "
+          f"samples): {len(starts22)} frame starts; S1 launches "
+          f"{launches22['sync_search']} at shapes {shapes22}; launches "
+          f"{launches22}")
+    check(dev22.type == "cuda", "Topology() is not on the card")
+    check(len(starts22) == NF22 and launches22["sync_search"]
+          == len(s1_shapes22) >= NF22,
+          "frame sync did not find every frame through S1")
+    exact22 = 0
+    for f, lb in enumerate(starts22):
+        syms = out22[lb.index: lb.index + lb.data]
+        rec = align_payload((syms.real > 0).astype(np.uint8), NBL)
+        exact22 += int(lb.data == NBL + 16 and rec is not None
+                        and np.array_equal(rec, bits22[f]))
+    print(f"[22] {exact22} of {NF22} frames' payloads exact after slicing "
+          f"and per-frame descrambling")
+    check(exact22 == NF22, "frame sync payloads not exact")
+    for key in shapes22:
+        x_, pre_, *rest = s1_first22[key]
+        ref_ = sync_search_f64(x_.cpu().numpy(), [1.0], *rest)
+        for label, fn in (("S1", sync_search), ("plain", sync_search_plain)):
+            agree = search_agreement(
+                [a.cpu().numpy() for a in fn(x_, pre_, *rest)], ref_)
+            check(agree["scale_zero_mismatch"] == 0 and agree["peak_mismatch"]
+                  == 0 and agree["scale_rel"] <= 1e-5
+                  and agree["delta_fc_abs"] <= 1e-5
+                  and agree["phase_abs"] <= 2e-3,
+                  f"{label} at {key} disagrees with the float64 oracle")
+        print(f"[22] S1 launch shape {key}: S1 and its plain version held "
+              f"to the float64 oracle on that launch's input ({agree})")
+    del s1_first22
+    out22c, lbs22c, wall22c, _ = frame_sync_run("cpu")
+    same = [(lb.id, lb.data, lb.index, lb.width) for lb in lbs22] == \
+        [(lb.id, lb.data, lb.index, lb.width) for lb in lbs22c]
+    d22 = float(np.max(np.abs(out22 - out22c))) if out22.shape == \
+        out22c.shape else float("inf")
+    print(f"[22] the same stream on Topology(device='cpu') (the plain "
+          f"search): labels equal {same}, symbols max|d| {d22:.3e} (atol "
+          f"1e-5)")
+    check(same and d22 <= 1e-5, "frame sync on the card disagrees with the "
+                                "CPU")
+    print(f"[22] on {card}: {wall22:.3f} s from commit() to wait_inactive() "
+          f"({len(stream22) / wall22 / 1e6:.2f} Msamples/s, "
+          f"{NF22 / wall22:.1f} frames/s); on the CPU {wall22c:.3f} s")
+
+    # the loopback of benches/bench_suite.py bench_digital_link: 2 x 20
+    # packets of 256 bits through framer and correlator on Topology()
+    from pothoscomms_tpu_torch import Packet
+
+    rngl = np.random.default_rng(3)
+    preamble_l = rngl.integers(0, 2, 32).astype(np.uint8)
+    batches = [[rngl.integers(0, 2, 256).astype(np.uint8) for _ in range(20)]
+               for _ in range(2)]
+    feeder = FeederSource("uint8")
+    gen = BlockRegistry.make("/blocks/packet_to_stream")
+    gen.set_frame_start_id("txStart")
+    gen.set_frame_end_id("txEnd")
+    framer = BlockRegistry.make("/comms/preamble_framer")
+    framer.set_preamble(preamble_l)
+    framer.set_frame_start_id("txStart")
+    framer.set_frame_end_id("txEnd")
+    framer.set_padding_size(8)
+    corr = BlockRegistry.make("/comms/preamble_correlator")
+    corr.set_preamble(preamble_l)
+    corr.set_threshold(0)
+    corr.set_frame_start_id("rxStart")
+    deframer = BlockRegistry.make("/blocks/stream_to_packet")
+    deframer.set_frame_start_id("rxStart")
+    deframer.set_mtu(256)
+    sinkl = CollectorSink("uint8")
+    topol = Topology()
+    chainl = [feeder, gen, framer, corr, deframer, sinkl]
+    for a, b in zip(chainl[:-1], chainl[1:]):
+        topol.connect(a, 0, b, 0)
+    delivered, walls = 0, []
+    for k, payloads in enumerate(batches):
+        first = len(sinkl.packets)
+        if k:  # a sacrificial lead frame for the first batch's flush
+            feeder.feed_packet(Packet(np.zeros(256, np.uint8)))
+        for p in payloads:
+            feeder.feed_packet(Packet(p))
+        feeder.feed_packet(Packet(np.zeros(len(preamble_l), np.uint8)))
+        t0 = time.perf_counter()
+        check(topol.wait_inactive(timeout=120.0), "loopback did not finish")
+        walls.append(time.perf_counter() - t0)
+        j = 0
+        for pkt in sinkl.packets[first:]:  # in order, skipping artifacts
+            for i in range(j, len(payloads)):
+                if np.array_equal(pkt.payload, payloads[i]):
+                    delivered += 1
+                    j = i + 1
+                    break
+    print(f"[22] loopback packet_to_stream -> preamble_framer -> "
+          f"preamble_correlator -> stream_to_packet on {topol.device}: "
+          f"{delivered} of 40 payloads bit-exact; on {card}: "
+          f"{walls[0]:.3f} s and {walls[1]:.3f} s a batch of 20 "
+          f"({20 * 256 / walls[1] / 1e3:.1f} kbit/s warm)")
+    check(delivered == 40, "loopback payloads not delivered bit-exact")
+
     by_path = {"chain": launches, "one_pass": launches3,
                "block_api": launches_b, "stream_ceiling": launches_p1,
                "layout": launches_p2, "fm_chain": launches_fm,
                "fm_block_api": launches15, "split_step": launches17,
                "resampler_chain": launches18,
-               "resampler_block_api": launches19}
+               "resampler_block_api": launches19,
+               "modem_block_api": launches20, "link": launches21,
+               "frame_sync_block_api": launches22}
     par = "pothoscomms_tpu/parallel/pallas_kernels.py"
     # the bound of each kernel at the shape its ms was taken: bytes of its
     # inputs and outputs, and the float32 operations of its function
@@ -1681,7 +2085,8 @@ def main() -> int:
         "fir_fft_fused": k3_bound,
         "stream_scale": bound(4 * 32768 * 1024 * 4, 2 * 32768 * 1024),
         "layout_move": bound(2 * 4096 * 1024 * 4, 0),
-        "envelope": e1_bound}
+        "envelope": e1_bound,
+        "sync_search": s1_bound}
     # name: (source, TPU kernel, max |d|, ms, plain ms, one library call's
     # ms or None where no single PyTorch call computes the function)
     measured = {
@@ -1699,7 +2104,10 @@ def main() -> int:
                         p2["A_plain_ms"]),
         "envelope": ("envelope.cu", "pothoscomms_tpu/ops/filter.py:403 "
                      "(an XLA scan, not a Pallas kernel)", e1_abs, e1_ms,
-                     e1_plain_ms, None)}
+                     e1_plain_ms, None),
+        "sync_search": ("sync_search.cu", "pothoscomms_tpu/ops/framing.py:37"
+                        " (an XLA program, not a Pallas kernel)", s1_abs,
+                        s1_ms, s1_plain_ms, None)}
     kernels = []
     for name, (src, where, err, ms, plain_ms, lib_ms) in measured.items():
         paths = {p: c[name] for p, c in by_path.items()}
@@ -1735,6 +2143,8 @@ def main() -> int:
     kernels[5]["device_ms"] = e1_device_ms
     kernels[5]["ms_by_case"] = e1_times
     kernels[5]["device_ms_by_case"] = e1_device
+    kernels[6]["device_ms"] = s1_device_ms
+    kernels[6]["oracle_agreement"] = s1_oracle
     kernels[1]["device_ms"] = k2_device_ms
     kernels[1]["library_device_ms"] = k2_cufft_device_ms
     kernels[1]["by_n_at_32Mi_samples"] = k2_by_n

@@ -12,11 +12,20 @@ So far it covers:
   hand-written CUDA kernels (:mod:`.kernels`, sources in ``csrc/``);
 - the block API: the streaming runtime (:mod:`.core`), the fixture
   blocks, the filter blocks (FIR with rational rates, IIR, DC removal,
-  envelope, the FIR and IIR designers), the FFT and the FM discriminator
-  (:mod:`.blocks`), the design library (:mod:`.design`) and auto-fusion
-  (:mod:`.core.fusion`), on the device a :class:`Topology` is given;
+  envelope, the FIR and IIR designers), the FFT and the FM discriminator,
+  the digital blocks (bit/symbol/byte conversions, symbol mapper and
+  slicer, differential coding, scrambler and descrambler, the bitwise
+  family, byte order) and the framing blocks (preamble framer, frame
+  insert, preamble correlator, frame sync) (:mod:`.blocks`), the design
+  library (:mod:`.design`) and auto-fusion (:mod:`.core.fusion`,
+  label-transparent through the digital blocks), on the device a
+  :class:`Topology` is given;
 - :func:`.parallel.compiler.compile_chain` over any of those blocks'
-  fused cores.
+  fused cores;
+- the channel-batched framed digital link (:mod:`.parallel.link`), whose
+  frame-sync search is one launch of the S1 kernel
+  (:mod:`.kernels.sync_search`) over every channel; its bit-serial LFSR
+  and checksums run on the C++ host kernels of :mod:`.native`.
 """
 
 from pothoscomms_tpu_torch.core.block import Block

@@ -29,22 +29,32 @@ Design:
 - **Device-resident edges**: a segment posts its output as a
   :class:`DeviceChunk` — a planar-f32 tensor wrapped with the port
   dtype. Host blocks downstream materialize it through ``__array__``.
+- **Label-transparent runs**: when every member's label propagation is a
+  pure index rescale that its compute ignores (``fuse_label_adjust``, the
+  digital blocks), the segment processes THROUGH head labels and re-emits
+  them on the tail, each index rescaled by every member in turn, instead
+  of stopping at them.
+- **Fan-in heads**: a run's head may have several input ports (the N-ary
+  bitwise block); the segment pulls one aligned quantum from each and the
+  head core receives the tuple.
 
 Block protocol (implemented by fusable blocks):
 
 - ``fuse_ready() -> bool`` — non-consuming eligibility check (dtype is
   32-bit float, config supported, retained state present).
-- ``fuse_export(channels) -> (carry, step)`` — build the device core
-  and its carry from CURRENT streaming state, consuming any port-held
-  state (e.g. the FIR's K-1 queued history samples).
+- ``fuse_export(channels) -> (carry, step[, params])`` — build the device
+  core and its carry from CURRENT streaming state, consuming any
+  port-held state (e.g. the FIR's K-1 queued history samples); the
+  optional ``params`` are device operators the step takes after the
+  stream (the scrambler's GF(2) block matrices).
 - ``fuse_import(carry) -> None`` — restore streaming state from the
   carry (inverse of export).
 - ``fuse_kind`` — optional class tag ("fir", "fft") for the peephole.
+- ``fuse_label_adjust(label) -> label`` — optional: the block's label
+  index rescale; a run whose members all have it is label-transparent.
 
 Not ported yet: source-headed segments (with the sources, ROADMAP Queue 1
-item 10); fan-in heads, multi-output tails and label-transparent runs
-(``fuse_label_adjust``), with the blocks that have them. A label at the
-head therefore always bounds the fused pull.
+item 4) and multi-output tails (with the blocks that have them).
 """
 
 from __future__ import annotations
@@ -139,6 +149,14 @@ def _is_fusable(blk) -> bool:
             and len(blk.inputs) == 1 and len(blk.outputs) == 1)
 
 
+def _is_head_fusable(blk) -> bool:
+    """A run HEAD may have several input ports (fan-in, reference
+    math/Arithmetic.cpp:204-231): the segment pulls an aligned quantum
+    from every head port. Interior blocks stay 1-in/1-out."""
+    return (hasattr(blk, "fuse_export") and hasattr(blk, "fuse_ready")
+            and len(blk.inputs) >= 1 and len(blk.outputs) == 1)
+
+
 def detect_segments(blocks, topology) -> List["FusedSegment"]:
     """Maximal linear runs (length >= 2) of fusable blocks where each
     interior edge is exactly one output port feeding exactly one input
@@ -153,7 +171,7 @@ def detect_segments(blocks, topology) -> List["FusedSegment"]:
             for port in out.downstream:
                 feeders[id(port)] = feeders.get(id(port), 0) + 1
     for blk in blocks:
-        if id(blk) in used or not _is_fusable(blk):
+        if id(blk) in used or not _is_head_fusable(blk):
             continue
         run = [blk]
         cur = blk
@@ -181,7 +199,7 @@ def detect_segments(blocks, topology) -> List["FusedSegment"]:
                 for b2 in blocks
                 for out in b2.outputs.values()
                 for port in out.downstream
-                if port is seg.head
+                if any(port is h for h in seg.heads)
             )
             segments.append(seg)
     return segments
@@ -191,10 +209,11 @@ def _chain_step(cores):
     """Compose per-core steps into one step. Each core has signature
     ``core(carry, x, *params) -> (carry', y)``; the step takes the
     stream [T(, 2)], runs it as one channel [1, T(, 2)] and flattens FFT
-    frames back to stream layout."""
+    frames back to stream layout. A fan-in head takes a tuple of streams
+    and its core receives the tuple of channels."""
 
     def step(x, carries, params):
-        x = x[None]
+        x = tuple(v[None] for v in x) if isinstance(x, tuple) else x[None]
         new = []
         for core, c, p in zip(cores, carries, params):
             c2, x = core(c, x, *p)
@@ -214,9 +233,18 @@ class FusedSegment:
     def __init__(self, blocks, topology):
         self.blocks = blocks
         self.topology = topology
-        self.head = blocks[0].input(next(iter(blocks[0].inputs)))
+        self.heads = list(blocks[0].inputs.values())
+        self.head = self.heads[0] if len(self.heads) == 1 else None
         self.tail_out = blocks[-1].output(next(iter(blocks[-1].outputs)))
         self.tail_dtype = self.tail_out.dtype
+        # Label-transparent runs: every member's label propagation is a
+        # pure index rescale and its compute ignores labels, so the fused
+        # path processes THROUGH labels, re-emitting them index-adjusted
+        # on the tail instead of disengaging (single-head runs only)
+        self.label_transparent = (
+            self.head is not None
+            and all(callable(getattr(b, "fuse_label_adjust", None))
+                    for b in blocks))
         self.engaged = False
         self.step = None
         self.carries = None
@@ -278,8 +306,9 @@ class FusedSegment:
         return int(free * r.denominator // r.numerator)
 
     def backlog(self) -> int:
-        """Elements available to fuse: the head-port queue depth."""
-        return self.head.elements()
+        """Elements available to fuse: the head-port queue depth (the
+        aligned minimum over fan-in heads)."""
+        return min(p.elements() for p in self.heads)
 
     def _epoch_sig(self):
         return tuple(b._fuse_epoch for b in self.blocks)
@@ -292,11 +321,13 @@ class FusedSegment:
         return True
 
     def _head_label_limit(self) -> Optional[int]:
-        """Index of the first label queued at the head (None if none).
-        The fused path may process UP TO a label; the labeled region
-        itself runs streaming (sample-accurate label semantics, e.g.
-        Scale's factor-by-label, math/Scale.cpp:104-122)."""
-        idxs = [lb.index for lb in self.head.labels]
+        """Index of the first label queued at any head (None if none).
+        For label-OPAQUE segments the fused path may process UP TO a
+        label; the labeled region itself runs streaming (sample-accurate
+        label semantics, e.g. Scale's factor-by-label,
+        math/Scale.cpp:104-122). Label-transparent segments carry labels
+        through instead (see work())."""
+        idxs = [lb.index for p in self.heads for lb in p.labels]
         return min(idxs) if idxs else None
 
     def _head_retained(self) -> int:
@@ -307,18 +338,21 @@ class FusedSegment:
     def try_engage(self) -> bool:
         if self.engaged or not self._interior_clean():
             return False
-        if self.head._messages:
+        if any(p._messages for p in self.heads):
             return False
         self._refresh_geometry()
         # engaging must yield at least one label-free pull quantum AFTER
         # the head block's retained state is exported off the queue —
         # otherwise the segment would engage, pull nothing, and
-        # disengage every round while starving the members
+        # disengage every round while starving the members (a
+        # label-transparent segment carries labels through instead, so
+        # they do not bound the quantum)
         head_ret = self._head_retained()
-        avail = self.head.elements() - head_ret
-        limit = self._head_label_limit()
-        if limit is not None:
-            avail = min(avail, limit - head_ret)
+        avail = self.backlog() - head_ret
+        if not self.label_transparent:
+            limit = self._head_label_limit()
+            if limit is not None:
+                avail = min(avail, limit - head_ret)
         if self._bucket(avail) == 0:
             return False
         if not all(b.fuse_ready() for b in self.blocks):
@@ -361,10 +395,12 @@ class FusedSegment:
                 imports.append(fir.fuse_import)
                 fresh_cores.append(None)  # built on cache miss
             else:
-                carry, step = u[1].fuse_export(1)
-                carries.append(carry)
+                exp = u[1].fuse_export(1)
+                carries.append(exp[0])
                 imports.append(u[1].fuse_import)
-                fresh_cores.append(step)
+                # (step, device params uploaded at export, if any)
+                fresh_cores.append((exp[1], exp[2] if len(exp) > 2
+                                    else ()))
         self.carries = tuple(carries)
         self._imports = imports
         self._epochs = self._epoch_sig()
@@ -379,8 +415,8 @@ class FusedSegment:
                     cores.append(step)
                     params.append(p)
                 else:
-                    cores.append(core)
-                    params.append(())
+                    cores.append(core[0])
+                    params.append(tuple(core[1]))
             cached = (_chain_step(cores), tuple(params))
             if len(self._step_cache) > 16:
                 self._step_cache.clear()
@@ -478,21 +514,36 @@ class FusedSegment:
         planars = [to_planar(p, port.dtype, dev) for p in port.take(n)]
         return planars[0] if len(planars) == 1 else torch.cat(planars)
 
+    def _collect_head_labels(self, q: int):
+        """Remove and return the head labels inside the pull quantum (a
+        label-transparent segment re-emits them adjusted on the tail).
+        Removing them BEFORE take() keeps the port's consume accounting
+        from propagating them into the interior ports."""
+        port = self.head
+        taken = [lb for lb in port.labels if lb.index < q]
+        if taken:
+            port.labels = [lb for lb in port.labels if lb.index >= q]
+            taken.sort(key=lambda lb: lb.index)
+        return taken
+
     def work(self) -> None:
         if not self.engaged:
             return
-        if self.head._messages or self._epoch_sig() != self._epochs:
+        if (any(p._messages for p in self.heads)
+                or self._epoch_sig() != self._epochs):
             # messages demand the streaming path; reconfig demands new
             # cores — both via disengage (re-engage follows once the
             # queue is clean and over threshold again)
             self.disengage()
             return
-        avail = self.head.elements()
-        limit = self._head_label_limit()
-        if limit is not None:
-            # fused processing runs up to the label; the labeled region
-            # streams with exact per-sample semantics
-            avail = min(avail, limit)
+        avail = self.backlog()
+        limit = None
+        if not self.label_transparent:
+            limit = self._head_label_limit()
+            if limit is not None:
+                # fused processing runs up to the label; the labeled
+                # region streams with exact per-sample semantics
+                avail = min(avail, limit)
         free = self.tail_out.free_space()
         cap = avail if free is None else min(
             avail, max(self._free_to_input_units(free), 0))
@@ -509,14 +560,26 @@ class FusedSegment:
                 # the streaming drain stays bounded and the backlog
                 # re-engages next round.
                 port = self.head
-                if self.stash_safe:
+                if self.stash_safe and port is not None:
                     last = max(lb.index + max(lb.width, 1)
                                for lb in port.labels)
                     if port.elements() > last:
                         self.stash = port.split_tail(last)
                 self.disengage()
             return
-        x = self._pull(self.head, q)
+        labels = (self._collect_head_labels(q)
+                  if self.label_transparent else [])
+        if len(self.heads) == 1:
+            x = self._pull(self.heads[0], q)
+        else:
+            x = tuple(self._pull(p, q) for p in self.heads)
         y, self.carries = self.step(x, self.carries, self.params)
-        self.tail_out.post(DeviceChunk(y, self.tail_dtype))
+        # each member's index rescale in turn: the walk the streaming
+        # path's to_adjusted calls take
+        out_labels = []
+        for lb in labels:
+            for b in self.blocks:
+                lb = b.fuse_label_adjust(lb)
+            out_labels.append(lb)
+        self.tail_out.post(DeviceChunk(y, self.tail_dtype), out_labels)
         self.fused_elements += q

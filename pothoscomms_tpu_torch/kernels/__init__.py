@@ -6,6 +6,9 @@
   one-pass chain built on it.
 - :mod:`.envelope`: E1, the attack/release envelope follower (the JAX
   package's envelope scans; not a Pallas port).
+- :mod:`.sync_search`: S1, the frame-sync search over every offset of
+  every channel (the JAX package's XLA search program; not a Pallas
+  port).
 - :mod:`.stream_scale` and :mod:`.layout_move`: P1 and P2, the probes of
   the card's streaming roof and of in-row layout moves.
 - :mod:`.build`: nvcc build of ``csrc/*.cu`` and ctypes loading.

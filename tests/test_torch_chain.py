@@ -330,15 +330,19 @@ def test_package_imports_with_jax_blocked():
         "sys.modules['pothoscomms_tpu'] = None\n"
         "import pothoscomms_tpu_torch\n"
         "from pothoscomms_tpu_torch.kernels import (build, cgemm, fft,\n"
-        "    fir_fft_fused, envelope, layout_move, stream_scale)\n"
+        "    fir_fft_fused, envelope, layout_move, stream_scale,\n"
+        "    sync_search)\n"
         "from pothoscomms_tpu_torch.parallel import chain, compiler, cplx, "
-        "fft, profiling\n"
+        "fft, link, profiling\n"
+        "from pothoscomms_tpu_torch import native\n"
         "from pothoscomms_tpu_torch.core import (block, dtypes, fixtures,\n"
         "    fusion, labels, packet, qformat, registry, testing, topology)\n"
         "from pothoscomms_tpu_torch.design import (firdes, iirdes, remez,\n"
         "    windows)\n"
-        "from pothoscomms_tpu_torch.ops import cint, filter, fxpt\n"
-        "from pothoscomms_tpu_torch.blocks import demod, fft, filter\n"
+        "from pothoscomms_tpu_torch.ops import (bits, cint, digital_device,"
+        " filter,\n    framing, fxpt, gf2)\n"
+        "from pothoscomms_tpu_torch.blocks import (demod, digital, fft, "
+        "filter,\n    framing)\n"
         "assert not [m for m in sys.modules if m.startswith('jax')\n"
         "            and sys.modules[m] is not None]\n"
         "print('ok')\n")

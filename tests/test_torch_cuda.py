@@ -14,7 +14,11 @@ carries exact. The probes P1 and P2 equal their plain versions bit for
 bit (x 2 and permutations are exact); E1 within rtol 1e-5 / atol 1e-6
 (tests/test_filter.py's envelope bound); the FM chain and FM topology on
 the card within 1e-4 absolute of the CPU (cumulative sums of DC removal
-taken in another order, on outputs of order 1).
+taken in another order, on outputs of order 1). S1 (the frame-sync
+search) and its plain version within the float64 oracle's bounds of
+tests/test_torch_framing.py; the modem segment on the card bit-exact
+with the CPU, labels included; the link on the card bit-exact on every
+channel.
 """
 
 import numpy as np
@@ -640,3 +644,126 @@ def test_config3_designer_topology_on_card(dev):
     assert topo._segments[0].engage_count >= 1 and launched >= 1
     assert got.shape == ref.shape and len(got) > 0
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------- #
+# S1, the modem segment and the link (the digital and framing layers)
+# ---------------------------------------------------------------------- #
+def _link_batch(rng, C, L):
+    """[C, L, 2] float32: zero gaps, then BPSK frames of 20 x 4 samples a
+    preamble symbol, scaled, rotated and with noise 0.01."""
+    from pothoscomms_tpu_torch.parallel.link import (apply_channel,
+                                                     tx_waveform)
+
+    x = np.zeros((C, L, 2), np.float32)
+    wave = tx_waveform(rng.integers(0, 2, 64).astype(np.uint8),
+                       device="cpu")
+    for c in range(C):
+        wv = apply_channel(wave, gap_pre=100 + 37 * c, gap_post=0,
+                           attenuation=0.3 + 0.1 * (c % 5), phase=0.2 * c,
+                           freq_offset=1e-4 * ((c % 5) - 2), noise=0.01,
+                           rng=np.random.default_rng(c))
+        m = min(len(wv), L)
+        x[c, :m, 0], x[c, :m, 1] = wv[:m].real, wv[:m].imag
+    return x
+
+
+@pytest.mark.parametrize("C,L,pre_n,w", [(1, 1024, 1, 80), (7, 5000, 2, 40),
+                                         (64, 32768, 1, 80)])
+def test_sync_search_kernel_matches_plain_and_oracle(dev, C, L, pre_n, w):
+    """S1 against its plain version and the float64 oracle, within the
+    bounds of tests/test_torch_framing.py (scale 1e-5 relative, delta_fc
+    1e-5, phase 2e-3 rad where |L| >= 1, peaks exact off near-integers;
+    ill-conditioned and borderline offsets left out)."""
+    from pothoscomms_tpu_torch.core.testing import (search_agreement,
+                                                    sync_search_f64)
+    from pothoscomms_tpu_torch.kernels.sync_search import (
+        sync_search, sync_search_plain)
+
+    rng = np.random.default_rng(C)
+    x = _link_batch(rng, C, L)
+    pre = np.exp(1j * np.arange(pre_n) * 0.7)
+    pre_p = np.stack([pre.real, pre.imag], -1).astype(np.float32)
+    sw, dw = w * pre_n, 4
+    n = L - sw - 58 * dw + 1
+    xd, pd = torch.from_numpy(x).to(dev), torch.from_numpy(pre_p).to(dev)
+    before = sync_search.launches
+    got = [a.cpu().numpy() for a in sync_search(xd, pd, 0.01, sw, w, dw,
+                                                pre_n, n)]
+    torch.cuda.synchronize()
+    assert sync_search.launches == before + 1
+    plain = [a.cpu().numpy() for a in sync_search_plain(
+        xd, pd, 0.01, sw, w, dw, pre_n, n)]
+    ref = sync_search_f64(x, pre, 0.01, sw, w, dw, pre_n, n)
+    for arrays in (got, plain):
+        agree = search_agreement(arrays, ref)
+        assert agree["scale_zero_mismatch"] == 0, agree
+        assert agree["peak_mismatch"] == 0, agree
+        assert agree["scale_rel"] <= 1e-5 and agree["delta_fc_abs"] <= 1e-5
+        assert agree["phase_abs"] <= 2e-3, agree
+
+
+def test_sync_search_raises_instead_of_falling_back(dev):
+    from pothoscomms_tpu_torch.kernels.sync_search import sync_search
+
+    x = torch.zeros((2, 2048, 2), device=dev)
+    pre = torch.tensor([[1.0, 0.0]], device=dev)
+    with pytest.raises(ValueError):
+        sync_search(x[:, ::2], pre, 0.01, 80, 80, 4, 1, 100)  # strided
+    with pytest.raises(ValueError):
+        sync_search(x, pre.cpu(), 0.01, 80, 80, 4, 1, 100)
+
+
+def test_modem_segment_on_card_matches_cpu(dev):
+    """The six-block modem segment fused on the card, both scrambler
+    modes and labels on the feed: bits and labels equal to the same run
+    on the CPU, and to the input."""
+    from pothoscomms_tpu_torch import BlockRegistry, Label, Topology
+    from pothoscomms_tpu_torch.core.fixtures import CollectorSink, FeederSource
+
+    table = np.array([1 + 1j, -1 + 1j, -1 - 1j, 1 - 1j]) / np.sqrt(2)
+    bits = np.random.default_rng(20).integers(0, 2, 1 << 18).astype(np.uint8)
+
+    def run(device, mode):
+        blocks = [BlockRegistry.make("/comms/scrambler"),
+                  BlockRegistry.make("/comms/bits_to_symbols", 2, "MSBit"),
+                  BlockRegistry.make("/comms/symbol_mapper",
+                                     "complex_float32"),
+                  BlockRegistry.make("/comms/symbol_slicer",
+                                     "complex_float32"),
+                  BlockRegistry.make("/comms/symbols_to_bits", 2, "MSBit"),
+                  BlockRegistry.make("/comms/descrambler")]
+        for b in (blocks[0], blocks[-1]):
+            b.set_mode(mode)
+            b.set_poly(0x8E)
+        blocks[2].set_map(table)
+        blocks[3].set_map(table)
+        feed, sink = FeederSource("uint8"), CollectorSink("uint8")
+        topo = Topology(device=device)
+        chain = [feed] + blocks + [sink]
+        for a, b in zip(chain[:-1], chain[1:]):
+            topo.connect(a, 0, b, 0)
+        feed.feed_buffer(bits, [Label("f", i, 65536 * i + 3)
+                                for i in range(4)])
+        topo.commit()
+        assert topo.wait_inactive(timeout=60.0)
+        labels = [(lb.id, lb.data, lb.index) for lb in sink.get_labels()]
+        return sink.get_buffer(), labels, topo._segments
+
+    for mode in ("additive", "multiplicative"):
+        got, labels, segs = run(dev, mode)
+        ref, ref_labels, _ = run("cpu", mode)
+        assert len(segs) == 1 and segs[0].fused_elements == 1 << 18
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(got, bits)
+        assert labels == ref_labels and len(labels) == 4
+
+
+def test_link_on_card_16_channels(dev):
+    from pothoscomms_tpu_torch.kernels.sync_search import sync_search
+    from pothoscomms_tpu_torch.parallel.link import run_link
+
+    before = sync_search.launches
+    res = run_link(16, n_bits=64, seed=7, device=dev)
+    assert sync_search.launches == before + 1
+    assert res["all_exact"], res["bit_exact"]

@@ -14,7 +14,8 @@ import torch
 import pothoscomms_tpu_torch as pkg
 from pothoscomms_tpu_torch.core import placement
 from pothoscomms_tpu_torch.kernels import fir_fft_fused as ff
-from pothoscomms_tpu_torch.parallel import chain, compiler
+from pothoscomms_tpu_torch.ops import framing
+from pothoscomms_tpu_torch.parallel import chain, compiler, link
 
 torch.set_num_threads(1)
 
@@ -38,6 +39,16 @@ def _config3_blocks():
 
 def _zeros(*shape):
     return np.zeros(shape, np.float32)
+
+
+def _lone(path, *args):
+    return pkg.BlockRegistry.make(path, *args)
+
+
+def _frame_sync_search():
+    fs = _lone("/comms/frame_sync", "complex_float32")
+    fs._search_arrays(np.zeros(1024, np.complex64), 8)
+    return fs._search
 
 
 # each builds something that holds tensors, with no device named
@@ -65,18 +76,34 @@ ENTRY_POINTS = {
     "fused_consts_from_numpy": lambda: ff.fused_consts_from_numpy(
         (None, None, None, (_zeros(8, 128), _zeros(8, 128)),
          (_zeros(64, 1024), _zeros(64, 1024)))),
+    # the digital and framing layers
+    "scrambler_fuse_export": lambda: _lone("/comms/scrambler").fuse_export(
+        1),
+    "differential_encoder_fuse_export": lambda: _lone(
+        "/comms/differential_encoder").fuse_export(2),
+    "make_sync_search": lambda: framing.make_sync_search([1.0], 20, 4,
+                                                         0.01),
+    "make_hamming_profile": lambda: framing.make_hamming_profile([1, 0, 1]),
+    "frame_sync_search": _frame_sync_search,
+    "make_channel_search": lambda: link.make_channel_search(
+        [1.0], 20, 4, 0.01, 100)[0](_zeros(2, 1024, 2)),
+    "run_link": lambda: link.run_link(1, 16)["x"],
 }
 
 
 def _device_types(obj) -> set:
     """The device types of every tensor in obj (tensors, modules, nested
-    tuples and lists)."""
+    tuples and lists, and the tensors a closure holds)."""
     if isinstance(obj, torch.Tensor):
         return {obj.device.type}
     if isinstance(obj, torch.nn.Module):
         return {b.device.type for b in obj.buffers()}
     if isinstance(obj, (tuple, list)):
         return set().union(*(_device_types(o) for o in obj))
+    if callable(obj) and getattr(obj, "__closure__", None):
+        return set().union(*(_device_types(c.cell_contents)
+                             for c in obj.__closure__
+                             if isinstance(c.cell_contents, torch.Tensor)))
     return set()
 
 
