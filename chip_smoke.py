@@ -136,12 +136,14 @@ Phases, one or more lines each:
      once for the [256, 32768] batch and held against its plain version
      and a float64 oracle of its formulas on 8 channels; the TX, search
      and RX decode times, S1 alone by events and on the card beside its
-     plain version and its bound;
+     plain version and its bound (the search's least work, 806 float32
+     operations an offset: kernels/sync_search.ops_per_offset);
  22. path "frame_sync_block_api": 64 frames of 4000 bits (tx_waveform,
      apply_channel) through /comms/frame_sync (TIMING) -> collector on
      Topology(): 64 frame starts, every frame's payload exact after
      slicing and descrambling with the link's pilot alignment, every S1
-     launch shape held to the oracle on that launch's input, the same
+     launch shape held to the oracle on that launch's input and timed
+     there (events, on the card) beside its bound, the same
      stream on Topology(device="cpu") (the plain search) equal in labels
      and within 1e-5 in symbols; then bench_digital_link's loopback,
      packet_to_stream -> preamble_framer -> preamble_correlator ->
@@ -160,7 +162,9 @@ reported apart, as ``conv_branch_launches``. K1's entry adds
 each tensor-core launch also launches the operator kernel,
 ``tf32_operator``) and ``by_shape`` (K1 at the split step's and the
 resampler's shapes: its ms, on the card, its plain version's, one complex64
-torch.matmul's and its bound); every K1 launch of the main path, the block
+torch.matmul's and its bound); S1's entry adds ``by_shape`` (the link's
+and FrameSync's launch shapes: launches, the compiled kernel's plan, ms,
+on the card, bound); every K1 launch of the main path, the block
 API, the split step and the resampler paths must go to its tensor-core
 variant.
 """
@@ -192,6 +196,11 @@ def bound(nbytes: float, ops: float, peak: float = F32_OPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def share(bound_ms: float, ms) -> str:
+    """The bound's share of a measured time, or "not measured"."""
+    return "not measured" if ms is None else f"{bound_ms / ms:.1%}"
+
+
 def check(cond: bool, msg: str) -> None:
     """Stop the run, exit code 1 and no result line, unless ``cond``."""
     if not cond:
@@ -219,8 +228,8 @@ def main() -> int:
         variant)
     from pothoscomms_tpu_torch.kernels.envelope import (envelope_rows,
                                                         envelope_rows_plain)
-    from pothoscomms_tpu_torch.kernels.sync_search import (sync_search,
-                                                           sync_search_plain)
+    from pothoscomms_tpu_torch.kernels.sync_search import (
+        card_plan, ops_per_offset, sync_search, sync_search_plain, work)
     from pothoscomms_tpu_torch.kernels.layout_move import (
         MODES, layout_move, layout_move_plain)
     from pothoscomms_tpu_torch.kernels.stream_scale import (
@@ -335,7 +344,8 @@ def main() -> int:
           f"{build.find_nvcc()} in {time.perf_counter() - t0:.2f} s")
     for log in sorted(build.BUILD_DIR.glob("lib*.log")):
         for line in log.read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
                 print(f"    {log.stem.split('-')[0]}: {line.strip()}")
 
     # -- 3. K1 against its plain version, both variants ------------------
@@ -1888,13 +1898,12 @@ def main() -> int:
     print(f"[21] S1 vs its plain version at [{CL}, {res21['lp']}, 2], "
           f"n={n21}: max|d scale| {s1_abs:.3e}, corr_peak differs at "
           f"{d_peak} of {CL * n21} offsets")
-    # the bound: per offset 17 operations a correlation tap (the angle, a
-    # cos and a sin, two complex products, the sum), 8 a term of K, one a
-    # term of the two window sums and ~20 for the rest (divisions, two
-    # atan2, the magnitude); x read once, four [C, n] float32 outputs
-    ops_per_offset = 17 * 80 + 8 * (40 - 2 * 4) + 2 * (40 - 4) + 20
-    s1_bound = bound(x21.numel() * 4 + 4 * CL * n21 * 4,
-                     CL * n21 * ops_per_offset)
+    # the bound: the search's least work, 806 operations an offset here
+    # (ops_per_offset: one complex multiply-add a correlation tap, which no
+    # formulation can do without, the preamble applied once a symbol; K's
+    # product and |x| once a sample, direct window and K sums), x read
+    # once, four [C, n] float32 outputs
+    s1_bound = bound(*work(CL, res21["lp"], n21, *args21[1:5]))
     pool21 = [(x21,)]
     s1_ms = event_ms(lambda x: sync_search(x, pre21, *args21), pool21,
                      calls=20)
@@ -1908,9 +1917,17 @@ def main() -> int:
           f"{sec21['search'] * 1e3:.3f} ms (one S1 launch and the arrays' "
           f"copy back), RX decode on the host {sec21['rx_decode']:.3f} s; "
           f"S1 alone {s1_ms:.4f} ms ({f4(s1_device_ms)} on the card), bound "
-          f"{s1_bound[0]:.4f} ms by {s1_bound[1]} ({s1_bound[0] / s1_ms:.1%}"
-          f" of it), plain version {s1_plain_ms:.3f} ms "
-          f"({s1_plain_ms / s1_ms:.1f}x S1)")
+          f"{s1_bound[0]:.4f} ms by {s1_bound[1]} "
+          f"({ops_per_offset(*args21[1:5])} operations an offset; "
+          f"{s1_bound[0] / s1_ms:.1%} of it by events, "
+          f"{share(s1_bound[0], s1_device_ms)} on the card), plain version "
+          f"{s1_plain_ms:.3f} ms ({s1_plain_ms / s1_ms:.1f}x S1); plan "
+          f"(k, threads) {card_plan(CL, n21, 80)}")
+    s1_by_shape = {f"{CL}x{res21['lp']}": {
+        "path": "link", "launches": launches21["sync_search"],
+        "plan": card_plan(CL, n21, 80), "ms": s1_ms,
+        "device_ms": s1_device_ms, "bound_ms": s1_bound[0],
+        "bound_by": s1_bound[1]}}
     del got21, plain21, res21, x21
 
     # -- 22. path "frame_sync_block_api": FrameSync and the loopback ------
@@ -1998,6 +2015,22 @@ def main() -> int:
                   f"{label} at {key} disagrees with the float64 oracle")
         print(f"[22] S1 launch shape {key}: S1 and its plain version held "
               f"to the float64 oracle on that launch's input ({agree})")
+        # S1 timed at this launch's shape, beside its bound
+        C_, L_ = key[0], key[1]
+        b_ = bound(*work(C_, L_, rest[-1], *rest[1:5]))
+        fn_ = lambda x, rest=rest: sync_search(x, pre_, *rest)  # noqa: E731
+        ms_ = event_ms(fn_, [(x_,)], calls=20)
+        dev_ = device_ms(fn_, [(x_,)], calls=20, per_call=1, floor_ms=b_[0])
+        s1_by_shape[f"{C_}x{L_}"] = {
+            "path": "frame_sync_block_api",
+            "launches": s1_shapes22.count(key),
+            "plan": card_plan(C_, rest[-1], rest[2]), "ms": ms_,
+            "device_ms": dev_, "bound_ms": b_[0], "bound_by": b_[1]}
+        print(f"[22] on {card}: S1 at {key}, plan (k, threads) "
+              f"{card_plan(C_, rest[-1], rest[2])}: {ms_:.4f} ms by events "
+              f"(the host's enqueue included), {f4(dev_)} on the card; "
+              f"bound {b_[0]:.5f} ms by {b_[1]} ({share(b_[0], dev_)} of it "
+              f"on the card)")
     del s1_first22
     out22c, lbs22c, wall22c, _ = frame_sync_run("cpu")
     same = [(lb.id, lb.data, lb.index, lb.width) for lb in lbs22] == \
@@ -2145,6 +2178,8 @@ def main() -> int:
     kernels[5]["device_ms_by_case"] = e1_device
     kernels[6]["device_ms"] = s1_device_ms
     kernels[6]["oracle_agreement"] = s1_oracle
+    # S1 at the link's and FrameSync's launch shapes
+    kernels[6]["by_shape"] = s1_by_shape
     kernels[1]["device_ms"] = k2_device_ms
     kernels[1]["library_device_ms"] = k2_cufft_device_ms
     kernels[1]["by_n_at_32Mi_samples"] = k2_by_n

@@ -17,7 +17,11 @@ The JAX program takes its window sums and the frequency estimate's sum as
 differences of float32 prefix sums over the whole bucket, whose
 resolution falls as the bucket grows (at 32768 samples the prefix sums of
 |x| reach ~1e4, where a float32 step is ~1e-3). The plain version takes
-those prefix sums in float64; the kernel sums each window directly.
+those prefix sums in float64; the kernel sums each window directly, and
+takes the correlation by Horner's rule in blocks of taps (the source's
+note). :func:`card_plan` reads the launch's plan, the offsets a thread and
+the threads a block, from the compiled kernel; :func:`ops_per_offset` and
+:func:`work` count the search's least work, the yardstick of its bound.
 """
 
 from __future__ import annotations
@@ -33,6 +37,30 @@ from pothoscomms_tpu_torch.parallel import cplx
 # window samples in one tile of the plain version's correlation,
 # [channels, offsets, sw]: each float32 plane of it is 64 MB
 TILE_ELEMENTS = 1 << 24
+
+
+def ops_per_offset(sw: int, w: int, dw: int, npre: int) -> int:
+    """The search's least work an offset, in float32 operations: one
+    complex multiply-add (8) a correlation tap (Horner's rule: the least
+    any formulation needs; applying the preamble once a symbol is algebra,
+    not work left out); K's product x[m] conj(x[m + w/2]) (6) and |x[m]|
+    (4) once a sample, counted once an offset (n offsets read n + sw - 1
+    samples); one complex add (2) a term of K and one add a term of each
+    window sum, which stay direct sums (float32 running or prefix sums
+    lose the windows at 32768 samples); ~20 for the rest (the divisions,
+    two atan2, |L|); and one complex product for each preamble symbol
+    after the first. 806 at the link's sw = w = 80, dw = 4, npre = 1."""
+    half = w // 2
+    return 8 * sw + 6 + 4 + 2 * (half - 2 * dw) + 2 * (half - dw) + 20 \
+        + 8 * (npre - 1)
+
+
+def work(C: int, L: int, n: int, sw: int, w: int, dw: int, npre: int):
+    """(bytes, operations) of one search of C channels of L samples at n
+    offsets: x read once, four [C, n] float32 outputs written once;
+    :func:`ops_per_offset` an offset."""
+    return C * L * 8 + 4 * C * n * 4, C * n * ops_per_offset(sw, w, dw,
+                                                             npre)
 
 
 def _check(x, pre, sw, w, dw, npre, n):
@@ -133,7 +161,7 @@ def sync_search(x: torch.Tensor, pre: torch.Tensor, thr: float, sw: int,
     Returns (scale, delta_fc, phase_off, corr_peak), each [C, n] float32
     (corr_peak floored to the reference's integer). On CUDA x and pre
     must be contiguous; a sync word too long for one block's shared
-    memory (~9600 samples) makes the launch fail, and the call raise.
+    memory (~19000 samples) makes the launch fail, and the call raise.
     """
     _check(x, pre, sw, w, dw, npre, n)
     if x.device.type == "cpu":
@@ -166,3 +194,15 @@ def _entry():
         + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def card_plan(C: int, n: int, w: int) -> tuple[int, int]:
+    """(k, threads): the compiled kernel's plan (``sync_search_plan``)
+    for C channels of n offsets at symbol width w, k consecutive offsets a
+    thread and the threads a block."""
+    fn = build.load("sync_search").sync_search_plan
+    fn.argtypes = [ctypes.c_longlong] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = None
+    k, threads = ctypes.c_int(), ctypes.c_int()
+    fn(C, n, w, ctypes.byref(k), ctypes.byref(threads))
+    return k.value, threads.value

@@ -649,9 +649,9 @@ def test_config3_designer_topology_on_card(dev):
 # ---------------------------------------------------------------------- #
 # S1, the modem segment and the link (the digital and framing layers)
 # ---------------------------------------------------------------------- #
-def _link_batch(rng, C, L):
+def _link_batch(rng, C, L, noise=0.01):
     """[C, L, 2] float32: zero gaps, then BPSK frames of 20 x 4 samples a
-    preamble symbol, scaled, rotated and with noise 0.01."""
+    preamble symbol, scaled, rotated and with noise ``noise``."""
     from pothoscomms_tpu_torch.parallel.link import (apply_channel,
                                                      tx_waveform)
 
@@ -661,16 +661,20 @@ def _link_batch(rng, C, L):
     for c in range(C):
         wv = apply_channel(wave, gap_pre=100 + 37 * c, gap_post=0,
                            attenuation=0.3 + 0.1 * (c % 5), phase=0.2 * c,
-                           freq_offset=1e-4 * ((c % 5) - 2), noise=0.01,
+                           freq_offset=1e-4 * ((c % 5) - 2), noise=noise,
                            rng=np.random.default_rng(c))
         m = min(len(wv), L)
         x[c, :m, 0], x[c, :m, 1] = wv[:m].real, wv[:m].imag
     return x
 
 
-@pytest.mark.parametrize("C,L,pre_n,w", [(1, 1024, 1, 80), (7, 5000, 2, 40),
-                                         (64, 32768, 1, 80)])
-def test_sync_search_kernel_matches_plain_and_oracle(dev, C, L, pre_n, w):
+@pytest.mark.parametrize("C,L,pre_n,w,noise", [
+    (1, 1024, 1, 80, 0.01), (7, 5000, 2, 40, 0.01), (64, 32768, 1, 80, 0.01),
+    # FrameSync's long bucket, a four-symbol preamble, a noiseless batch
+    # (channel 2 at zero frequency offset: K on the negative real axis)
+    (1, 65536, 1, 80, 0.01), (5, 8192, 4, 20, 0.01), (8, 32768, 1, 80, 0.0)])
+def test_sync_search_kernel_matches_plain_and_oracle(dev, C, L, pre_n, w,
+                                                     noise):
     """S1 against its plain version and the float64 oracle, within the
     bounds of tests/test_torch_framing.py (scale 1e-5 relative, delta_fc
     1e-5, phase 2e-3 rad where |L| >= 1, peaks exact off near-integers;
@@ -681,7 +685,7 @@ def test_sync_search_kernel_matches_plain_and_oracle(dev, C, L, pre_n, w):
         sync_search, sync_search_plain)
 
     rng = np.random.default_rng(C)
-    x = _link_batch(rng, C, L)
+    x = _link_batch(rng, C, L, noise)
     pre = np.exp(1j * np.arange(pre_n) * 0.7)
     pre_p = np.stack([pre.real, pre.imag], -1).astype(np.float32)
     sw, dw = w * pre_n, 4
@@ -701,6 +705,83 @@ def test_sync_search_kernel_matches_plain_and_oracle(dev, C, L, pre_n, w):
         assert agree["peak_mismatch"] == 0, agree
         assert agree["scale_rel"] <= 1e-5 and agree["delta_fc_abs"] <= 1e-5
         assert agree["phase_abs"] <= 2e-3, agree
+
+
+def _s1_inputs(dev, C, L, noise, seed=5):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(_link_batch(rng, C, L, noise)).to(dev)
+    return x, torch.tensor([[1.0, 0.0]], device=dev), \
+        (0.01, 80, 80, 4, 1, L - 312 + 1)
+
+
+@pytest.mark.parametrize("noise", [0.01, 0.0])
+def test_sync_search_zero_scale_outputs_are_zero(dev, noise):
+    """Where the plain version's scale is 0 (borderline offsets of the
+    oracle left out), S1's scale, delta_fc and corr_peak are exactly 0, and
+    wherever S1's own scale is 0 so are its delta_fc and corr_peak: no
+    offset is skipped, and the zero-scale outputs are the function's."""
+    from pothoscomms_tpu_torch.core.testing import sync_search_f64
+    from pothoscomms_tpu_torch.kernels.sync_search import (
+        sync_search, sync_search_plain)
+
+    x, pre, args = _s1_inputs(dev, 8, 32768, noise)
+    got = [a.cpu().numpy() for a in sync_search(x, pre, *args)]
+    plain = [a.cpu().numpy() for a in sync_search_plain(x, pre, *args)]
+    ref = sync_search_f64(x.cpu().numpy(), [1.0], *args)
+    zero = (plain[0] == 0) & ~ref["borderline"]
+    assert zero.sum() > 1000 and (~zero).sum() > 1000
+    for k in (0, 1, 3):
+        assert np.all(got[k][zero] == 0), k
+    own = got[0] == 0
+    assert np.all(got[1][own] == 0) and np.all(got[3][own] == 0)
+
+
+# (C, L, w, plan): shapes whose launch takes each plan (k, threads) of the
+# compiled kernel, and one whose symbol width's half 2 does not divide
+S1_PLAN_SHAPES = [(16, 32768, 80, (2, 128)), (1, 65536, 80, (1, 128)),
+                  (1, 32768, 80, (1, 64)), (16, 32768, 6, (1, 128))]
+
+
+@pytest.mark.parametrize("C,L,w,plan", S1_PLAN_SHAPES)
+def test_sync_search_counts_one_launch_at_every_plan(dev, C, L, w, plan):
+    """The compiled kernel takes the plan named for the shape, a call adds
+    one launch, and the outputs equal, bit for bit, those of a launch of
+    the same channels in a batch of another size, at another plan (each
+    offset's arithmetic does not depend on it)."""
+    from pothoscomms_tpu_torch.kernels.sync_search import (card_plan,
+                                                           sync_search)
+
+    x = torch.from_numpy(_link_batch(np.random.default_rng(C), C, L)).to(dev)
+    pre = torch.tensor([[1.0, 0.0]], device=dev)
+    sw, dw = w, 4 if w > 8 else 1
+    n = L - sw - 58 * dw + 1
+    args = (0.01, sw, w, dw, 1, n)
+    assert card_plan(C, n, w) == plan
+    before = sync_search.launches
+    got = sync_search(x, pre, *args)
+    torch.cuda.synchronize()
+    assert sync_search.launches == before + 1
+    # channel 0 alone, or twice over
+    other = x[:1].contiguous() if C > 1 else torch.cat([x, x]).contiguous()
+    assert card_plan(other.shape[0], n, w) != plan
+    again = sync_search(other, pre, *args)
+    assert sync_search.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a[0], b[0])
+
+
+def test_sync_search_plan_fills_the_card():
+    """sync_search_plan: k = 2 consecutive offsets a thread at 128 threads
+    where the grid has 264 blocks; else k, then the threads, halved; k = 1
+    where 2 does not divide w / 2."""
+    from pothoscomms_tpu_torch.kernels.sync_search import card_plan
+
+    assert card_plan(256, 32457, 80) == (2, 128)
+    assert card_plan(1, 32457, 80) == (1, 64)
+    assert card_plan(1, 65225, 80) == (1, 128)
+    assert card_plan(256, 32457, 20) == (2, 128)
+    assert card_plan(256, 32457, 6) == (1, 128)
+    assert card_plan(1, 1, 80) == (1, 64)
 
 
 def test_sync_search_raises_instead_of_falling_back(dev):
