@@ -147,7 +147,41 @@ Phases, one or more lines each:
      stream on Topology(device="cpu") (the plain search) equal in labels
      and within 1e-5 in symbols; then bench_digital_link's loopback,
      packet_to_stream -> preamble_framer -> preamble_correlator ->
-     stream_to_packet, 2 x 20 packets of 256 bits, all 40 exact.
+     stream_to_packet, 2 x 20 packets of 256 bits, all 40 exact;
+ 23. path "wave_chain_block_api": benches/bench_wave_chain.py's chain,
+     /comms/waveform_source (SINE, 1.217 MHz at 30.72 MSps) -> scale(0.5)
+     -> rotate(0.3) -> FIR (64 complex taps) -> FFT(1024) -> a sink that
+     keeps only the checked windows, on the card, on Topology(): runs of
+     2^25, 2^25 and 2^27 samples. One source-headed segment of five
+     blocks, engaged cold (its first quantum q + 63, before any FIR
+     streaming round), cycling to the K1 pair; every K1 launch on the
+     tensor cores; floor((N - 63) / 1024) windows over the N samples
+     granted, no sample past the quota; the timed run's host-to-device
+     bytes from a torch.profiler trace below one quantum of stream data;
+     three windows (the first after the cold start, one across the timed
+     run's first quantum boundary, the last) within 1e-4 of max
+     |spectrum| of a float64 oracle of the same table walk; wall times
+     and Msamples/s;
+ 24. path "fm_source_block_api": benches/bench_fm_topology.py's chain,
+     /comms/noise_source (seed 11, NORMAL, fast) -> freq_demod ->
+     dc_removal(32, 2) -> envelope(4, 16) -> a counting sink, runs of 2^25
+     and 2^27: one source-headed segment of four blocks launching E1 (each
+     launch shape held to E1's plain version, as in [13]); the first 2^22
+     outputs against the float64 FM oracle of [14]/[15] on the input
+     rebuilt on the host from the pool and the walk's offsets
+     (blocks/sources.noise_walk_plain), atol 2e-3; the output count fused
+     and streaming (auto_fuse False) at 2^20 + 12345; wall times and
+     Msamples/s;
+ 25. the math catalog on the card: (a) every math block that fuses at
+     float32 or complex_float32 (core/testing.FUSED_MATH_CASES), with an
+     exact hop, engaged on Topology() at 2^18 + 17 samples, its fused
+     cores posting on the card, against the same topology streaming on
+     the CPU (comparators, conjugate, rsqrt and ModF bit for bit, the rest
+     within their bounds); (b) path "math_fanin_block_api": fan-in
+     arithmetic(ADD) -> FFT(1024) at 2^24 + 3089 samples an input, one
+     segment with two heads on K2, four windows within 1e-4 of max
+     |spectrum| of float64; (c) abs -> modf engaged with its two-output
+     tail, equal to the CPU bit for bit.
 Then a JSON line of per-kernel results (with each kernel's bound_ms and
 bound_by, from this run's shapes and the H100's published peaks, and
 library_ms, one PyTorch call computing the same function, or null) and,
@@ -301,6 +335,10 @@ def main() -> int:
                                                torch.Tensor)))
         return set()
 
+    def active(blk):
+        blk._active = True  # as a committed topology leaves it
+        return blk
+
     z = np.zeros
     lone = BlockRegistry.make("/comms/dc_removal", "float32")
     defaults = {  # each entry point called with no device
@@ -324,6 +362,10 @@ def main() -> int:
              (z((64, 1024), np.float32),) * 2))),
         "scrambler fuse_export": device_types(BlockRegistry.make(
             "/comms/scrambler").fuse_export(1)),
+        "waveform_source fuse_source_export": device_types(
+            active(BlockRegistry.make("/comms/waveform_source",
+                                      "complex_float32")).fuse_source_export(
+                1)),
         "make_sync_search": device_types(make_sync_search([1.0], 20, 4,
                                                           0.01)),
         "make_hamming_profile": device_types(make_hamming_profile([1, 0])),
@@ -2100,6 +2142,445 @@ def main() -> int:
           f"({20 * 256 / walls[1] / 1e3:.1f} kbit/s warm)")
     check(delivered == 40, "loopback payloads not delivered bit-exact")
 
+    # -- 23. path "wave_chain_block_api": waveform_source -> scale ->
+    # rotate -> FIR -> FFT, one source-headed segment engaged cold ---------
+    from pothoscomms_tpu_torch import Block, DType
+    from pothoscomms_tpu_torch.blocks.sources import noise_walk_plain
+    from pothoscomms_tpu_torch.core.fusion import DeviceChunk
+    from pothoscomms_tpu_torch.core.testing import (
+        FUSED_MATH_CASES, fused_math_agree, fused_math_feeds, fused_math_run)
+    from pothoscomms_tpu_torch.parallel import cplx as cplx_mod
+    from pothoscomms_tpu_torch.parallel import fft as pfft_mod
+
+    class RangeSink(Block):
+        """Counts what arrives and keeps, on the card, only the sample
+        ranges in ``keep`` ({key: (start, length)}): no copy of the
+        stream."""
+
+        def __init__(self, dtype, keep):
+            super().__init__()
+            self.setup_input(0, DType.parse(dtype))
+            self.input(0).set_capacity(None)
+            self.count, self.host_parts, self.ranges = 0, 0, keep
+            self.pieces = {k: [] for k in keep}
+
+        def work(self):
+            port = self.input(0)
+            n = port.elements()
+            if not n:
+                return
+            for part in port.take(n):
+                m = len(part)
+                if isinstance(part, DeviceChunk):
+                    planar = part.planar
+                else:  # the streamed drain posts host arrays
+                    self.host_parts += 1
+                    arr = np.ascontiguousarray(part)
+                    planar = torch.from_numpy(arr.view(np.float32).reshape(
+                        (m, 2) if np.iscomplexobj(arr) else (m,)))
+                for k, (start, length) in self.ranges.items():
+                    lo = max(start, self.count)
+                    hi = min(start + length, self.count + m)
+                    if lo < hi:
+                        self.pieces[k].append(
+                            planar[lo - self.count:hi - self.count]
+                            .to(dev, copy=True))
+                self.count += m
+
+        def kept(self, k):
+            y = torch.cat(self.pieces[k]).cpu().numpy()
+            return y.view(np.complex64)[:, 0] if y.ndim == 2 else y
+
+    def watch_quanta(seg, fir=None):
+        """Notes each fused quantum of a source-headed segment: (samples
+        generated, pair core engaged, the FIR's streaming work calls and
+        consumed samples before it)."""
+        quanta = []
+        work_source = seg._work_source
+
+        def noting():
+            before = seg.source._source_quota
+            streamed = (fir._work_calls, fir.input(0).total_consumed) \
+                if fir is not None else None
+            pair = seg.pair_engaged
+            work_source()
+            if seg.source._source_quota < before:  # a quantum ran
+                quanta.append((before - seg.source._source_quota, pair,
+                               streamed))
+
+        seg._work_source = noting
+        return quanta
+
+    def trace_summary(prof):
+        """(host-to-device bytes, seconds of kernels, the six kernels that
+        took longest with their seconds) of a torch.profiler trace: its
+        chrome trace's memcpy and kernel events."""
+        path = build.BUILD_DIR / "h2d_trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+        path.unlink()
+        h2d = sum(int(e.get("args", {}).get("bytes", 0)) for e in events
+                  if "HtoD" in str(e.get("name", "")))
+        by_name = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                name = str(e.get("name", ""))[:60]
+                by_name[name] = by_name.get(name, 0.0) + float(
+                    e.get("dur", 0)) * 1e-6
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        return h2d, sum(by_name.values()), top
+
+    K23, NB23, RUNS23 = 64, 1024, (1 << 25, 1 << 25, 1 << 27, 1 << 27)
+    N23 = sum(RUNS23)
+    rng23 = np.random.default_rng(3)
+    taps23 = (rng23.normal(size=K23) + 1j * rng23.normal(size=K23)) / K23
+    src23 = BlockRegistry.make("/comms/waveform_source", "complex_float32")
+    src23.set_waveform("SINE")
+    src23.set_frequency(1.217e6)
+    src23.set_sample_rate(30.72e6)
+    sc23 = BlockRegistry.make("/comms/scale", "complex_float32")
+    sc23.set_factor(0.5)
+    rot23 = BlockRegistry.make("/comms/rotate", "complex_float32")
+    rot23.set_phase(0.3)
+    fir23 = BlockRegistry.make("/comms/fir_filter", "complex_float32",
+                               "COMPLEX")
+    fir23.set_taps(taps23)
+    fft23 = BlockRegistry.make("/comms/fft", "complex_float32", NB23, False)
+    nwin23 = (N23 - (K23 - 1)) // NB23
+    # the first window after the cold start; the window holding the FIR
+    # output where the timed run's second quantum starts (not a window
+    # boundary: the first run's drain left a sub-window leftover); the last
+    q23 = 1 << 24
+    straddle = (RUNS23[0] + RUNS23[1] + q23 - (K23 - 1)) // NB23
+    keep23 = {0: "first after the cold start",
+              straddle: "across the timed run's first quantum boundary",
+              nwin23 - 1: "last"}
+    sink23 = RangeSink("complex_float32",
+                      {w: (w * NB23, NB23) for w in keep23})
+    topo23 = Topology()
+    chain23 = [src23, sc23, rot23, fir23, fft23, sink23]
+    for a, b in zip(chain23[:-1], chain23[1:]):
+        topo23.connect(a, 0, b, 0)
+    topo23.commit()
+    check(len(topo23._segments) == 1
+          and topo23._segments[0].blocks == chain23[:-1],
+          f"the wave chain is not one source-headed segment of five blocks: "
+          f"{[len(s.blocks) for s in topo23._segments]}")
+    seg23 = topo23._segments[0]
+    quanta23 = watch_quanta(seg23, fir23)
+    # every K1 call of the path, by (operand, operator) shape: its count
+    # and the first call's operands, held against the plain version below
+    k1_calls23 = {}
+
+    def note_k1_23(args, out):
+        key = (tuple(args[0].shape[:2]), tuple(args[1].shape))
+        k1_calls23.setdefault(key, [0, args[:3]])[0] += 1
+
+    walls23, ends23 = [], []
+    zero_counts()
+    with contextlib.ExitStack() as stack:
+        for mod in (cplx_mod, chain_mod, fops, pfft_mod):
+            stack.enter_context(watched(mod, "cgemm", note_k1_23))
+        for i, n in enumerate(RUNS23):
+            # the last run repeats the timed one under torch.profiler, for
+            # its host-to-device bytes and kernel time
+            prof23 = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) \
+                if i == len(RUNS23) - 1 else contextlib.nullcontext()
+            with prof23:
+                t0 = time.perf_counter()
+                topo23.run_source_elements(n)
+                torch.cuda.synchronize()
+                walls23.append(time.perf_counter() - t0)
+            ends23.append(len(quanta23))
+    launches23 = read_counts()
+    bytes23, busy23, top23 = trace_summary(prof23)
+    first23 = quanta23[0]
+    runs23 = [quanta23[lo:hi] for lo, hi in zip([0] + ends23, ends23)]
+    pairs23 = [(sum(1 for q in r if q[1]), sum(1 for q in r if not q[1]))
+               for r in runs23]
+    print(f"[23] wave chain waveform_source(SINE 1.217 MHz at 30.72 MSps) -> "
+          f"scale(0.5) -> rotate(0.3) -> FIR({K23} taps) -> FFT({NB23}) on "
+          f"{topo23.device}, runs of {RUNS23}: launches {launches23}; one "
+          f"segment of {len(seg23.blocks)} blocks, engaged "
+          f"{seg23.engage_count}x ({seg23.cold_engages} cold), "
+          f"{len(quanta23)} fused quanta, {seg23.fused_elements} samples "
+          f"fused, the first {first23[0]} (FIR streaming calls and samples "
+          f"before it: {first23[2]}); the drains streamed "
+          f"{src23.output(0).total_produced} samples")
+    print(f"[23] fused quanta a run (on the FIR->FFT pair core, on the FIR "
+          f"and FFT singles): "
+          + ", ".join(f"run {i + 1} ({n}) {p} pair / {s1} single"
+                      for i, (n, (p, s1)) in enumerate(zip(RUNS23, pairs23)))
+          + " (after run 1 the FFT keeps a sub-window leftover, which the "
+            "pair cannot take: later runs go through the singles)")
+    check(seg23.cold_engages >= 1 and first23[2] == (0, 0)
+          and first23[0] == q23 + K23 - 1,
+          "the wave chain did not engage cold before any FIR streaming round")
+    check(not runs23[0][0][1] and any(q[1] for q in runs23[0][1:]),
+          "the wave chain did not cycle from its cold singles to the K1 pair "
+          "in run 1")
+    check(launches23["cgemm"] >= 1 and launches23["fft_c2c"] >= 1,
+          "the wave chain did not launch cgemm and fft_c2c")
+    check(launches23["cgemm_by_variant"][TENSOR_CORES]
+          == launches23["cgemm"],
+          "a wave chain cgemm launch missed the tensor-core variant")
+    check(sum(c[0] for c in k1_calls23.values()) == launches23["cgemm"],
+          f"K1 calls noted ({sum(c[0] for c in k1_calls23.values())}) and "
+          f"launches counted ({launches23['cgemm']}) differ on the wave chain")
+    print(f"[23] K1 launches by (operand, operator planes): "
+          f"{ {k: c[0] for k, c in k1_calls23.items()} }")
+    # K1 against its plain version at each shape the path launched
+    for c in k1_calls23.values():
+        k1_by_shape.append(k1_at(23, *c[1], "wave_chain_block_api"))
+    del k1_calls23
+    generated = sum(q[0] for q in quanta23) + src23.output(0).total_produced
+    check(src23._source_quota == 0 and generated == N23,
+          f"the source generated {generated} samples for {N23} granted")
+    check(sink23.count == nwin23 * NB23,
+          f"{sink23.count // NB23} windows, expected {nwin23}")
+    print(f"[23] {sink23.count // NB23} windows = floor(({N23} - "
+          f"{K23 - 1}) / {NB23}); {generated} samples generated for {N23} "
+          f"granted; host-to-device bytes in the traced run (torch.profiler): "
+          f"{bytes23} (one quantum of stream data: {q23 * 8})")
+    check(bytes23 < q23 * 8, "the traced wave chain run moved a quantum of "
+                             "stream data from the host")
+    tab23 = src23._table.astype(np.complex128)
+    wave_err = 0.0
+    for w, what in keep23.items():
+        j = np.arange(w * NB23, w * NB23 + NB23 + K23 - 1)
+        seq = tab23[(j * src23._step) & src23._mask] * 0.5 * np.exp(0.3j)
+        exp = np.fft.fft(np.convolve(seq, taps23, "valid"))
+        rel = np.max(np.abs(sink23.kept(w) - exp)) / np.max(np.abs(exp))
+        wave_err = max(wave_err, rel)
+        print(f"[23] window {w} ({what}) vs float64 numpy oracle: "
+              f"/max|spectrum| {rel:.3e} (limit 1e-4)")
+        check(rel < 1e-4, f"wave chain window {w} disagrees with the oracle")
+    print(f"[23] on {card}: runs of {RUNS23[0]}, {RUNS23[1]} (warm-up) "
+          f"{walls23[0]:.3f} s and {walls23[1]:.3f} s; timed run of "
+          f"{RUNS23[2]} samples {walls23[2]:.4f} s, "
+          f"{RUNS23[2] / walls23[2] / 1e6:.1f} Msamples/s (on the FIR and "
+          f"FFT singles: {pairs23[2][0]} pair quanta); the same run again "
+          f"under torch.profiler {walls23[3]:.4f} s, kernels {busy23:.4f} s "
+          f"of it (the card idle {1 - busy23 / walls23[3]:.1%} of the traced "
+          f"run), the longest: "
+          + "; ".join(f"{k} {v:.4f} s" for k, v in top23))
+    del topo23, sink23, prof23
+
+    # -- 24. path "fm_source_block_api": noise_source -> freq_demod ->
+    # dc_removal -> envelope_detector, one source-headed segment ----------
+    HEAD24 = 1 << 22
+    RUNS24 = (1 << 25, 1 << 27)
+
+    def fm_source_topology(fuse, head=0):
+        src = BlockRegistry.make("/comms/noise_source", "complex_float32", 11)
+        src.set_waveform("NORMAL")
+        src.set_fast(True)
+        blocks = fm_blocks(DB, CASCB, ATTB, RELB)
+        sink = RangeSink("float32", {0: (0, head)} if head else {})
+        topo = Topology()
+        topo.auto_fuse = fuse
+        chain = [src] + blocks + [sink]
+        for a, b in zip(chain[:-1], chain[1:]):
+            topo.connect(a, 0, b, 0)
+        topo.commit()
+        return topo, src, sink
+
+    topo24, src24, sink24 = fm_source_topology(True, HEAD24)
+    check(len(topo24._segments) == 1 and len(topo24._segments[0].blocks) == 4
+          and topo24._segments[0].source is src24,
+          "the FM chain is not one source-headed segment of four blocks")
+    seg24 = topo24._segments[0]
+    walk24 = []  # (carry, t) of every fused generation step, in order
+    export24 = src24.fuse_source_export
+
+    def noting_export(channels):
+        carry, step, params = export24(channels)
+        check(params[0].device.type == "cuda", "the noise pool is not on "
+                                               "the card")
+
+        def noted(c, t, table):
+            walk24.append((c, t, src24.output(0).total_produced))
+            return step(c, t, table)
+
+        return carry, noted, params
+
+    src24.fuse_source_export = noting_export
+    quanta24 = watch_quanta(seg24)
+    walls24 = []
+    zero_counts()
+    n_noted = len(e1_launched)
+    with watched(fops, "envelope_rows", note_e1):
+        for n in RUNS24:
+            t0 = time.perf_counter()
+            topo24.run_source_elements(n)
+            torch.cuda.synchronize()
+            walls24.append(time.perf_counter() - t0)
+    launches24 = read_counts()
+    print(f"[24] FM chain noise_source(seed 11, NORMAL, fast) -> freq_demod "
+          f"-> dc_removal({DB}, {CASCB}) -> envelope({ATTB}, {RELB}) on "
+          f"{topo24.device}, runs of {RUNS24}: launches {launches24}; one "
+          f"segment of {len(seg24.blocks)} blocks, engaged "
+          f"{seg24.engage_count}x, {len(quanta24)} fused quanta, "
+          f"{seg24.fused_elements} samples fused, "
+          f"{src24.output(0).total_produced} streamed")
+    check(launches24["envelope"] >= 1, "the FM source path did not launch E1")
+    check(len(e1_launched) - n_noted == launches24["envelope"],
+          "E1 calls noted and launches counted differ on the FM source path")
+    hold_e1_launches("fm_source_block_api", n_noted)
+    check(sink24.count == sum(RUNS24), f"FM source path: {sink24.count} "
+                                       f"outputs for {sum(RUNS24)} samples")
+    # the oracle's input: the plain version of the fused walk, from the
+    # pool and the walk's offsets, from the stream's first sample
+    check(walk24 and walk24[0][2] == 0,
+          "the FM source path streamed before its first fused quantum")
+    pool24 = np.ascontiguousarray(src24._table).view(np.float32).reshape(
+        -1, 2)
+    parts24, have = [], 0
+    for c, t, _ in walk24:
+        if have >= HEAD24:
+            break
+        c2, y = noise_walk_plain(pool24, c, t)
+        parts24.append(y)
+        have += t
+    x24 = np.concatenate(parts24)[:HEAD24]
+    x24 = x24[:, 0].astype(np.float64) + 1j * x24[:, 1]
+    exp24 = fm_oracle(x24, DB, CASCB, ATTB, RELB)
+    got24 = sink24.kept(0)
+    fm_src_err = float(np.max(np.abs(got24 - exp24)))
+    print(f"[24] the first {HEAD24} outputs vs the float64 FM oracle on the "
+          f"input rebuilt on the host from the pool and the walk's offsets "
+          f"(noise_walk_plain): max|d| {fm_src_err:.3e} (atol 2e-3)")
+    check(fm_src_err <= 2e-3, "the FM source path disagrees with the oracle")
+    counts24 = {}
+    for fuse in (True, False):
+        topo, _, sink = fm_source_topology(fuse)
+        topo.run_source_elements((1 << 20) + 12345)
+        counts24[fuse] = sink.count
+    print(f"[24] output count at {(1 << 20) + 12345} samples, fused "
+          f"{counts24[True]}, streaming (auto_fuse False) {counts24[False]}")
+    check(counts24[True] == counts24[False] == (1 << 20) + 12345,
+          "the FM source path's output count differs from streaming")
+    print(f"[24] on {card}: warm-up run of {RUNS24[0]} samples "
+          f"{walls24[0]:.3f} s; timed run of {RUNS24[1]} samples "
+          f"{walls24[1]:.3f} s, {RUNS24[1] / walls24[1] / 1e6:.1f} "
+          f"Msamples/s")
+    del topo24, sink24
+
+    # -- 25. the math catalog on the card --------------------------------
+    chunk_devices = []
+
+    def note_post(args, out):
+        ys = args[1] if isinstance(args[1], tuple) else (args[1],)
+        chunk_devices.extend(y.device.type for y in ys)
+
+    n25 = (1 << 18) + 17
+    math_err = {}
+    for name in FUSED_MATH_CASES:
+        feeds = fused_math_feeds(name, n25, 25)
+        n_chunks = len(chunk_devices)
+        with watched(fusion.FusedSegment, "_post", note_post):
+            got, topo = fused_math_run(name, feeds, device=dev)
+        ref, _ = fused_math_run(name, feeds, device="cpu", fuse=False)
+        seg = topo._segments[0]
+        check(seg.fused_elements >= 1 << 18,
+              f"{name} did not engage on the card")
+        check(set(chunk_devices[n_chunks:]) == {"cuda"},
+              f"{name}'s fused core posted on {set(chunk_devices[n_chunks:])}")
+        try:
+            math_err[name] = fused_math_agree(name, got, ref)
+        except AssertionError as e:
+            check(False, f"math block on the card vs the CPU: {e}")
+    exact = [n for n in FUSED_MATH_CASES if FUSED_MATH_CASES[n][7] is None]
+    print(f"[25](a) {len(math_err)} fusable math blocks engaged on the card "
+          f"at {n25} samples (each with an exact hop), against the streaming "
+          f"path on device='cpu': bit for bit {exact}; the rest within their "
+          f"bounds, max|d| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in math_err.items()
+                      if k not in exact))
+
+    # (b) fan-in Arithmetic(ADD) -> FFT(1024), one segment on K2
+    n25b = (1 << 24) + 3089
+    rng25 = np.random.default_rng(25)
+    xa = rng25.standard_normal(2 * n25b, dtype=np.float32).view(np.complex64)
+    xb25 = rng25.standard_normal(2 * n25b, dtype=np.float32).view(
+        np.complex64)
+    nw25 = n25b // NB
+    keep25 = {0: "start", (1 << 14) - 1: "last of the fused pull",
+              1 << 14: "first streamed", nw25 - 1: "end"}
+    arith = BlockRegistry.make("/comms/arithmetic", "complex_float32", "ADD")
+    fft25 = BlockRegistry.make("/comms/fft", "complex_float32", NB, False)
+    sink25 = RangeSink("complex_float32",
+                      {w: (w * NB, NB) for w in keep25})
+    topo25 = Topology()
+    feeds25 = [FeederSource("complex_float32") for _ in range(2)]
+    for i, (f, x) in enumerate(zip(feeds25, (xa, xb25))):
+        topo25.connect(f, 0, arith, i)
+        arith.input(i).set_capacity(4 * QB)
+        f.feed_buffer(x)
+    topo25.connect(arith, 0, fft25, 0)
+    topo25.connect(fft25, 0, sink25, 0)
+    fft25.input(0).set_capacity(2 * QB)
+    zero_counts()
+    t0 = time.perf_counter()
+    topo25.commit()
+    check(topo25.wait_inactive(timeout=300.0), "fan-in path did not finish")
+    wall25 = time.perf_counter() - t0
+    launches25 = read_counts()
+    seg25 = topo25._segments[0] if topo25._segments else None
+    print(f"[25](b) fan-in arithmetic(ADD) -> FFT({NB}) on {topo25.device}, "
+          f"2 x {n25b} samples: launches {launches25}; segment of "
+          f"{len(seg25.blocks) if seg25 else 0} blocks, "
+          f"{len(seg25.heads) if seg25 else 0} heads, "
+          f"{seg25.fused_elements if seg25 else 0} samples fused; on {card} "
+          f"{wall25:.3f} s from commit() to wait_inactive()")
+    check(seg25 is not None and len(seg25.blocks) == 2
+          and len(seg25.heads) == 2 and seg25.fused_elements == 1 << 24,
+          "the fan-in segment did not run as one engaged segment")
+    check(launches25["fft_c2c"] >= 1, "the fan-in path did not launch K2")
+    check(sink25.count == nw25 * NB, f"fan-in path: {sink25.count} outputs")
+    fanin_err = 0.0
+    for w, what in keep25.items():
+        s = slice(w * NB, (w + 1) * NB)
+        exp = np.fft.fft(xa[s].astype(np.complex128) + xb25[s])
+        rel = np.max(np.abs(sink25.kept(w) - exp)) / np.max(np.abs(exp))
+        fanin_err = max(fanin_err, rel)
+        print(f"[25](b) window {w} ({what}) vs float64 numpy oracle: "
+              f"/max|spectrum| {rel:.3e} (limit 1e-4)")
+        check(rel < 1e-4, f"fan-in window {w} disagrees with the oracle")
+    del topo25, sink25, xa, xb25
+
+    # (c) abs -> modf: the two-output tail on the card
+    x25c = (rng25.normal(size=n25) * 8).astype(np.float32)
+    outs25c = {}
+    for where in (dev, "cpu"):
+        ab = BlockRegistry.make("/comms/abs", "float32")
+        mf = BlockRegistry.make("/comms/modf", "float32")
+        f = FeederSource("float32")
+        si, sf = CollectorSink("float32"), CollectorSink("float32")
+        topo = Topology(device=where)
+        topo.connect(f, 0, ab, 0)
+        topo.connect(ab, 0, mf, 0)
+        topo.connect(mf, "int", si, 0)
+        topo.connect(mf, "frac", sf, 0)
+        f.feed_buffer(x25c)
+        topo.commit()
+        check(topo.wait_inactive(timeout=120.0), "abs -> modf did not finish")
+        outs25c[str(where)] = (si.get_buffer(), sf.get_buffer(),
+                               topo._segments[0])
+    seg25c = outs25c[str(dev)][2]
+    print(f"[25](c) abs -> modf on the card: segment of {len(seg25c.blocks)} "
+          f"blocks with {len(seg25c.tail_outs)} tail ports, "
+          f"{seg25c.fused_elements} samples fused; int and frac planes equal "
+          f"to the same topology on the CPU bit for bit: "
+          f"{all(np.array_equal(a, b) for a, b in zip(outs25c[str(dev)][:2], outs25c['cpu'][:2]))}")
+    check(seg25c.fused_elements >= 1 << 18 and len(seg25c.tail_outs) == 2,
+          "abs -> modf did not engage with its two-output tail")
+    check(all(np.array_equal(a, b) for a, b in
+              zip(outs25c[str(dev)][:2], outs25c["cpu"][:2])),
+          "abs -> modf on the card differs from the CPU")
+
     by_path = {"chain": launches, "one_pass": launches3,
                "block_api": launches_b, "stream_ceiling": launches_p1,
                "layout": launches_p2, "fm_chain": launches_fm,
@@ -2107,7 +2588,10 @@ def main() -> int:
                "resampler_chain": launches18,
                "resampler_block_api": launches19,
                "modem_block_api": launches20, "link": launches21,
-               "frame_sync_block_api": launches22}
+               "frame_sync_block_api": launches22,
+               "wave_chain_block_api": launches23,
+               "fm_source_block_api": launches24,
+               "math_fanin_block_api": launches25}
     par = "pothoscomms_tpu/parallel/pallas_kernels.py"
     # the bound of each kernel at the shape its ms was taken: bytes of its
     # inputs and outputs, and the float32 operations of its function
@@ -2163,7 +2647,8 @@ def main() -> int:
         p: c["tf32_operator"] for p, c in by_path.items()}
     kernels[0]["simt_ms"] = k1_simt_ms
     # K1 at the shapes of the split step (one record per R, stream 0's
-    # operands) and of the resampler, each held against its plain version
+    # operands), of the resampler and of the wave chain, each held against
+    # its plain version
     kernels[0]["by_shape"] = k1_by_shape
     # CUDA events around one call also hold the host's enqueue, which
     # weighs on K2 and P2 (~0.2 ms and ~10 us), so their time on the card
@@ -2199,7 +2684,9 @@ def main() -> int:
           f"{fm_block_err:.3e} (atol 2e-3); split step {split_err:.3e} of "
           f"max|spectrum| (limit 1e-4); resampler chain {res_err:.3e} of "
           f"max|y| (limit 1e-4), its IIR output {iir_err:.3e}, config #3 "
-          f"block API {block_err:.3e} (atol 2e-4)")
+          f"block API {block_err:.3e} (atol 2e-4); wave chain {wave_err:.3e} "
+          f"and fan-in {fanin_err:.3e} of max|spectrum| (limit 1e-4); FM "
+          f"source path {fm_src_err:.3e} (atol 2e-3)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

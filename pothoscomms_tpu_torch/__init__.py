@@ -16,9 +16,12 @@ So far it covers:
   the digital blocks (bit/symbol/byte conversions, symbol mapper and
   slicer, differential coding, scrambler and descrambler, the bitwise
   family, byte order) and the framing blocks (preamble framer, frame
-  insert, preamble correlator, frame sync) (:mod:`.blocks`), the design
-  library (:mod:`.design`) and auto-fusion (:mod:`.core.fusion`,
-  label-transparent through the digital blocks), on the device a
+  insert, preamble correlator, frame sync), the 35 math blocks, the
+  waveform and noise sources and the window designer (:mod:`.blocks`),
+  the design library (:mod:`.design`) and auto-fusion
+  (:mod:`.core.fusion`: label-transparent through the digital and
+  elementwise blocks, fan-in heads, multi-output tails, and
+  source-headed segments that engage cold), on the device a
   :class:`Topology` is given;
 - :func:`.parallel.compiler.compile_chain` over any of those blocks'
   fused cores;

@@ -9,8 +9,11 @@ ported block factory in the port's own registry: the test fixtures,
 /comms/bitwise_unary, /comms/bitwise_binary, /comms/const_bitwise_binary,
 /comms/bitshift and /comms/byte_order; and the framing blocks
 /comms/preamble_framer, /comms/frame_insert, /comms/preamble_correlator
-and /comms/frame_sync (most also under their /blocks/... aliases). The
-rest of the JAX package's catalog is still to port (ROADMAP.md Queue 1).
+and /comms/frame_sync; the 35 math blocks (/comms/arithmetic ...
+/comms/modf); the sources /comms/waveform_source and /comms/noise_source;
+and /comms/window_designer (most also under their /blocks/... aliases).
+The rest of the JAX package's catalog (the utility and MAC blocks) is
+still to port (ROADMAP.md Queue 1).
 """
 
 import pothoscomms_tpu_torch.core.fixtures  # noqa: F401  test fixture blocks
@@ -20,3 +23,6 @@ from pothoscomms_tpu_torch.blocks import digital  # noqa: F401
 from pothoscomms_tpu_torch.blocks import fft  # noqa: F401
 from pothoscomms_tpu_torch.blocks import filter  # noqa: F401
 from pothoscomms_tpu_torch.blocks import framing  # noqa: F401
+from pothoscomms_tpu_torch.blocks import math  # noqa: F401
+from pothoscomms_tpu_torch.blocks import sources  # noqa: F401
+from pothoscomms_tpu_torch.blocks import window  # noqa: F401

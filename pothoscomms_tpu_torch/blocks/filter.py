@@ -396,19 +396,44 @@ class FIRFilter(Block):
                 and len(self._taps) <= 128
                 and self._eob_samps_left == 0
                 and self.dtype.is_float and self.dtype.bits == 32
-                and self.input(0).elements() >= self._K - 1)
+                and (self.input(0).elements() >= self._K - 1
+                     or self.fuse_cold_start()))
+
+    def fuse_cold_start(self) -> bool:
+        """True when this FIR may engage with an EMPTY input port (no K-1
+        retention yet): the fused core starts from a zero-length carry and
+        takes the first K-1 samples of its first quantum as history —
+        exactly the streaming semantics, where the first K-1 inputs
+        produce nothing (reference FIRFilter.cpp:305). A freshly committed
+        source-headed chain then engages on round one instead of paying a
+        streaming round through every member first."""
+        return (self._M == 1 and self._L == 1
+                and self.input(0).elements() == 0)
 
     def fuse_export(self, channels: int):
         """Streaming state -> device carry: the K-1 history samples are
         the first K-1 queued elements (reference FIRFilter.cpp:305 keeps
         them unconsumed); consume them into the fused carry. An interior
-        rational FIR also hands over its sub-M input-phase residue."""
+        rational FIR also hands over its sub-M input-phase residue. With
+        an empty port (cold start) the carry starts zero-length and the
+        first quantum's leading K-1 samples become the history."""
         from pothoscomms_tpu_torch.core.fusion import to_planar
 
         carry0, step = self.device_core(channels)
         k1 = self._K - 1
         if k1 == 0:
             return carry0, step
+        if self.fuse_cold_start():
+            def cold_step(carry, x):
+                # a zero-length carry marks the over-pulled FIRST quantum
+                # (q + K-1, see FusedSegment.try_engage): its leading K-1
+                # samples ARE the history, leaving a q-sample body (copied
+                # once, so the K1 operand starts on a 16-byte boundary)
+                if carry.shape[1] == k1:
+                    return step(carry, x)
+                return step(x[:, :k1], x[:, k1:].clone())
+
+            return carry0[:, :0], cold_step
         take = k1
         if self._M > 1 or self._L > 1:
             avail = self.input(0).elements()

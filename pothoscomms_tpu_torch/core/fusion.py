@@ -52,9 +52,26 @@ Block protocol (implemented by fusable blocks):
 - ``fuse_kind`` — optional class tag ("fir", "fft") for the peephole.
 - ``fuse_label_adjust(label) -> label`` — optional: the block's label
   index rescale; a run whose members all have it is label-transparent.
+- ``fuse_cold_start() -> bool`` — optional (the 1:1 FIR): the block may
+  engage with an EMPTY input port in a source-headed segment (below).
 
-Not ported yet: source-headed segments (with the sources, ROADMAP Queue 1
-item 4) and multi-output tails (with the blocks that have them).
+Source-headed segments: an unbounded source with a device generation core
+(``fuse_source_ready()``, ``fuse_source_export(channels) -> (carry,
+src_step, params)``, ``fuse_source_import(carry)``; blocks/sources.py) may
+HEAD a run. The segment has no head port: it is driven by the source's
+quota, and each quantum generates its samples on the segment's device and
+runs them through the chain in the same step, with no stream data crossing
+from the host. Such a segment may engage COLD, before any streaming round:
+at most one member (a 1:1 FIR) may start from an empty port, its first
+quantum over-pulls K-1 samples (counted in head units) that become its
+history, and a cold FIR -> FFT adjacency engages as two singles first and
+cycles to the K1 pair once that quantum has warmed the FIR's carry. A
+source never generates past its quota: the pull plus the over-pull stays
+within it.
+
+Multi-output tails: a block with more than one output (ModF) joins a run
+only as its last block; its step returns a tuple, one stream per output
+port, and the segment posts one DeviceChunk to each.
 """
 
 from __future__ import annotations
@@ -157,11 +174,27 @@ def _is_head_fusable(blk) -> bool:
             and len(blk.inputs) >= 1 and len(blk.outputs) == 1)
 
 
+def _is_source_fusable(blk) -> bool:
+    """An unbounded source with a device generation core: may HEAD a run
+    (no input port; the segment is driven by the source's quota)."""
+    return (hasattr(blk, "fuse_source_export")
+            and hasattr(blk, "fuse_source_ready")
+            and not blk.inputs and len(blk.outputs) == 1)
+
+
+def _is_tail_fusable(blk) -> bool:
+    """A multi-output block (ModF) joins a run only as its last block."""
+    return (hasattr(blk, "fuse_export") and hasattr(blk, "fuse_ready")
+            and len(blk.inputs) == 1 and len(blk.outputs) > 1)
+
+
 def detect_segments(blocks, topology) -> List["FusedSegment"]:
     """Maximal linear runs (length >= 2) of fusable blocks where each
     interior edge is exactly one output port feeding exactly one input
-    port. A frames-out block (FFT) terminates its run. Fan-OUT at the run
-    tail is fine — the tail posts its DeviceChunk to every consumer."""
+    port. A run may be HEADED by a fusable source (quota-driven). A
+    frames-out block (FFT) or a multi-output block terminates its run.
+    Fan-OUT at the run tail is fine — the tail posts its DeviceChunk to
+    every consumer."""
     used = set()
     segments = []
     # blocks that are fusion-run interiors must not be fan-in targets
@@ -171,7 +204,8 @@ def detect_segments(blocks, topology) -> List["FusedSegment"]:
             for port in out.downstream:
                 feeders[id(port)] = feeders.get(id(port), 0) + 1
     for blk in blocks:
-        if id(blk) in used or not _is_head_fusable(blk):
+        if id(blk) in used or not (_is_head_fusable(blk)
+                                   or _is_source_fusable(blk)):
             continue
         run = [blk]
         cur = blk
@@ -180,21 +214,28 @@ def detect_segments(blocks, topology) -> List["FusedSegment"]:
             if len(ds) != 1:
                 break
             nxt = ds[0].block
-            if (id(nxt) in used or nxt is blk or not _is_fusable(nxt)
+            if (id(nxt) in used or nxt is blk
                     or feeders.get(id(ds[0]), 0) != 1):
                 break
-            run.append(nxt)
-            used.add(id(nxt))
-            cur = nxt
+            if _is_fusable(nxt):
+                run.append(nxt)
+                used.add(id(nxt))
+                cur = nxt
+                continue
+            if _is_tail_fusable(nxt):
+                run.append(nxt)
+                used.add(id(nxt))
+            break
         if len(run) >= 2:
             used.update(id(b) for b in run)
             seg = FusedSegment(run, topology)
             # stashing assumes nothing posts into the head port later
             # in the round than the head's own schedule slot (true for
-            # forward-only graphs; feedback edges disable it)
+            # forward-only graphs; feedback edges disable it). A
+            # source-headed segment has no head port to stash into.
             order = {id(b): i for i, b in enumerate(blocks)}
             head_idx = order[id(run[0])]
-            seg.stash_safe = all(
+            seg.stash_safe = seg.head is not None and all(
                 order.get(id(b2), head_idx) < head_idx
                 for b2 in blocks
                 for out in b2.outputs.values()
@@ -205,12 +246,23 @@ def detect_segments(blocks, topology) -> List["FusedSegment"]:
     return segments
 
 
+def _finish(y):
+    """One channel's output in stream layout: drop the channel axis and
+    flatten FFT frames [nw, nbins, 2] to [nw * nbins, 2]; a multi-output
+    tail's tuple element by element."""
+    if isinstance(y, tuple):
+        return tuple(_finish(v) for v in y)
+    y = y[0]
+    return y.reshape(-1, 2) if y.dim() == 3 else y
+
+
 def _chain_step(cores):
     """Compose per-core steps into one step. Each core has signature
     ``core(carry, x, *params) -> (carry', y)``; the step takes the
     stream [T(, 2)], runs it as one channel [1, T(, 2)] and flattens FFT
     frames back to stream layout. A fan-in head takes a tuple of streams
-    and its core receives the tuple of channels."""
+    and its core receives the tuple of channels; a multi-output tail
+    returns a tuple of streams."""
 
     def step(x, carries, params):
         x = tuple(v[None] for v in x) if isinstance(x, tuple) else x[None]
@@ -218,10 +270,22 @@ def _chain_step(cores):
         for core, c, p in zip(cores, carries, params):
             c2, x = core(c, x, *p)
             new.append(c2)
-        y = x[0]  # drop the channel axis
-        if y.dim() == 3:  # FFT frames [nw, nbins, 2] -> stream
-            y = y.reshape(-1, 2)
-        return y, tuple(new)
+        return _finish(x), tuple(new)
+
+    return step
+
+
+def _source_chain_step(src_step, cores):
+    """Compose a source's generation step with the downstream cores:
+    ``step(t, carries, params)`` generates ``t`` samples where the
+    source's table lies and runs them through the chain (carries[0] and
+    params[0] are the source's)."""
+    chain = _chain_step(cores)
+
+    def step(t, carries, params):
+        c0, x = src_step(carries[0], t, *params[0])
+        y, new = chain(x[0], carries[1:], params[1:])
+        return y, (c0,) + new
 
     return step
 
@@ -233,10 +297,15 @@ class FusedSegment:
     def __init__(self, blocks, topology):
         self.blocks = blocks
         self.topology = topology
-        self.heads = list(blocks[0].inputs.values())
+        # a source-headed segment has no head input port: the source's
+        # production quota drives it
+        self.source = blocks[0] if not blocks[0].inputs else None
+        self.heads = ([] if self.source is not None
+                      else list(blocks[0].inputs.values()))
         self.head = self.heads[0] if len(self.heads) == 1 else None
-        self.tail_out = blocks[-1].output(next(iter(blocks[-1].outputs)))
-        self.tail_dtype = self.tail_out.dtype
+        # one port for most tails; ModF's two (a multi-output tail)
+        self.tail_outs = list(blocks[-1].outputs.values())
+        self.tail_dtypes = [o.dtype for o in self.tail_outs]
         # Label-transparent runs: every member's label propagation is a
         # pure index rescale and its compute ignores labels, so the fused
         # path processes THROUGH labels, re-emitting them index-adjusted
@@ -265,10 +334,17 @@ class FusedSegment:
         # precondition for the stash being newest data in the port
         # (set by detect_segments)
         self.stash_safe = False
+        # a cold FIR -> FFT adjacency engaged as singles; after the first
+        # quantum warms the FIR's carry the segment re-engages, and the
+        # pair peephole then takes the combined operator
+        self._pair_pending = False
+        # head-unit over-pull of the FIRST quantum after a cold engage
+        self._cold_extra = 0
         # observability
         self.engage_count = 0
         self.fused_elements = 0
         self.pair_engaged = False  # the last engage took the pair core
+        self.cold_engages = 0      # engages with a cold member
 
     # ------------------------------------------------------------------ #
     def _refresh_geometry(self) -> None:
@@ -307,7 +383,9 @@ class FusedSegment:
 
     def backlog(self) -> int:
         """Elements available to fuse: the head-port queue depth (the
-        aligned minimum over fan-in heads)."""
+        aligned minimum over fan-in heads), or the source's quota."""
+        if self.source is not None:
+            return self.source._source_quota
         return min(p.elements() for p in self.heads)
 
     def _epoch_sig(self):
@@ -335,6 +413,40 @@ class FusedSegment:
         ret = b.fuse_retained() if hasattr(b, "fuse_retained") else 0
         return ret or 0
 
+    def _cold_extra_needed(self) -> Optional[int]:
+        """Interior ports must hold EXACTLY their block's steady-state
+        retention (FIR: K-1 history; FFT: any sub-frame leftover, absorbed
+        by export; others: nothing). Residual unprocessed backlog there
+        would be bypassed by the fused path and replay out of order on
+        disengage — stream until it drains instead (None).
+
+        COLD START (source-headed segments only): a member with an EMPTY
+        port that can start cold (a 1:1 FIR) engages before any
+        streaming round; its first quantum over-pulls its retention, in
+        head units through the cumulative rate ratio, and the core drops
+        those outputs in-step. At most ONE cold member: its over-pull
+        leaves a ladder-aligned body, a second one downstream would see a
+        misaligned stream. Returns the over-pull (0 when warm)."""
+        cold = Fraction(0)
+        ratio = Fraction(1)
+        for b in self.blocks[1:]:
+            retained = (b.fuse_retained()
+                        if hasattr(b, "fuse_retained") else 0)
+            n = b.input(next(iter(b.inputs))).elements()
+            if retained is not None and n != retained:
+                if (self.source is not None and n == 0 and cold == 0
+                        and getattr(b, "fuse_cold_start", lambda: False)()):
+                    cold += retained / ratio
+                else:
+                    return None
+            fr = getattr(b, "fuse_ratio", None)
+            if callable(fr):
+                o, i = fr()
+                ratio *= Fraction(o, i)
+        if cold.denominator != 1:
+            return None  # the retention is not whole head units: warm up
+        return int(cold)
+
     def try_engage(self) -> bool:
         if self.engaged or not self._interior_clean():
             return False
@@ -347,45 +459,56 @@ class FusedSegment:
         # disengage every round while starving the members (a
         # label-transparent segment carries labels through instead, so
         # they do not bound the quantum)
-        head_ret = self._head_retained()
-        avail = self.backlog() - head_ret
-        if not self.label_transparent:
-            limit = self._head_label_limit()
-            if limit is not None:
-                avail = min(avail, limit - head_ret)
+        if self.source is not None:
+            avail = self.source._source_quota
+        else:
+            head_ret = self._head_retained()
+            avail = self.backlog() - head_ret
+            if not self.label_transparent:
+                limit = self._head_label_limit()
+                if limit is not None:
+                    avail = min(avail, limit - head_ret)
         if self._bucket(avail) == 0:
             return False
-        if not all(b.fuse_ready() for b in self.blocks):
+        if not all((b.fuse_source_ready() if b is self.source
+                    else b.fuse_ready()) for b in self.blocks):
             return False
-        # Interior ports must hold EXACTLY their block's steady-state
-        # retention (FIR: K-1 history; FFT: any sub-frame leftover,
-        # absorbed by export; others: nothing). Residual unprocessed
-        # backlog there would be bypassed by the fused path and replay
-        # out of order on disengage — stream until it drains instead.
-        for b in self.blocks[1:]:
-            retained = (b.fuse_retained()
-                        if hasattr(b, "fuse_retained") else 0)
-            if (retained is not None
-                    and b.input(next(iter(b.inputs))).elements()
-                    != retained):
-                return False
+        extra = self._cold_extra_needed()
+        if extra is None:
+            return False
+        self._cold_extra = extra
         # plan the unit list (pair peephole), then export carries
+        stream_blocks = self.blocks[1:] if self.source is not None \
+            else self.blocks
         units: List = []  # ("pair", fir, fft) | ("single", b)
+        self._pair_pending = False
         i = 0
-        while i < len(self.blocks):
-            b = self.blocks[i]
-            nxt = self.blocks[i + 1] if i + 1 < len(self.blocks) else None
+        while i < len(stream_blocks):
+            b = stream_blocks[i]
+            nxt = stream_blocks[i + 1] if i + 1 < len(stream_blocks) \
+                else None
             if (nxt is not None and getattr(b, "fuse_kind", None) == "fir"
-                    and getattr(nxt, "fuse_kind", None) == "fft"
-                    and self._pair_eligible(b, nxt)):
-                units.append(("pair", b, nxt))
-                i += 2
-                continue
+                    and getattr(nxt, "fuse_kind", None) == "fft"):
+                if self._pair_eligible(b, nxt):
+                    units.append(("pair", b, nxt))
+                    i += 2
+                    continue
+                if (getattr(b, "fuse_cold_start", lambda: False)()
+                        and self._pair_eligible(b, nxt, cold_ok=True)):
+                    # a COLD FIR cannot join the combined operator (its
+                    # history is the first quantum's head); engage as
+                    # singles now and cycle to the pair after the first
+                    # quantum (see _work_source)
+                    self._pair_pending = True
             units.append(("single", b))
             i += 1
         carries: List = []
         imports: List = []
         fresh_cores: List = []
+        if self.source is not None:
+            carry, src_step, src_params = self.source.fuse_source_export(1)
+            carries.append(carry)
+            imports.append(self.source.fuse_source_import)
         for u in units:
             if u[0] == "pair":
                 _, fir, fft = u
@@ -404,7 +527,8 @@ class FusedSegment:
         self.carries = tuple(carries)
         self._imports = imports
         self._epochs = self._epoch_sig()
-        key = (self._epochs, tuple(u[0] for u in units))
+        # a cold member's core differs from its warm one: keyed apart
+        key = (self._epochs, tuple(u[0] for u in units), extra > 0)
         cached = self._step_cache.get(key)
         if cached is None:
             cores: List = []
@@ -417,21 +541,32 @@ class FusedSegment:
                 else:
                     cores.append(core[0])
                     params.append(tuple(core[1]))
-            cached = (_chain_step(cores), tuple(params))
+            cached = (cores, tuple(params))
             if len(self._step_cache) > 16:
                 self._step_cache.clear()
             self._step_cache[key] = cached
-        self.step, self.params = cached
+        cores, params = cached
+        if self.source is not None:
+            # the source's table is its export's (a fresh upload of a few
+            # KiB to at most 8 MiB: tables change with the source's epoch)
+            self.step = _source_chain_step(src_step, cores)
+            self.params = (tuple(src_params),) + params
+        else:
+            self.step = _chain_step(cores)
+            self.params = params
         self.pair_engaged = any(u[0] == "pair" for u in units)
+        self.cold_engages += extra > 0
         self.engaged = True
         self.engage_count += 1
         return True
 
     @staticmethod
-    def _pair_eligible(fir, fft) -> bool:
+    def _pair_eligible(fir, fft, cold_ok: bool = False) -> bool:
         """Combined FIR*DFT operator preconditions (no side effects):
         1:1 rate, complex float stream, 1 < K <= min(128, nbins)+1,
-        forward FFT, no mid-frame leftover phase, K-1 history present."""
+        forward FFT, no mid-frame leftover phase, K-1 history present (a
+        cold FIR engages with single cores first; ``cold_ok`` checks
+        everything EXCEPT the history, for the pending-pair cycle)."""
         if fir._M != 1 or fir._L != 1:
             return False
         if fft.inverse or not fir.dtype.is_complex:
@@ -442,7 +577,7 @@ class FusedSegment:
         pp = min(128, fft.num_bins)
         if not (1 < k <= pp + 1):
             return False
-        if fir.input(0).elements() < k - 1:
+        if not cold_ok and fir.input(0).elements() < k - 1:
             return False
         return fft.input(0).elements() == 0
 
@@ -488,6 +623,7 @@ class FusedSegment:
         for imp, carry in zip(self._imports, self.carries):
             imp(carry)
         self.engaged = False
+        self._cold_extra = 0
         self.step = None
         self.carries = None
         self.params = None
@@ -526,8 +662,23 @@ class FusedSegment:
             taken.sort(key=lambda lb: lb.index)
         return taken
 
+    def _tail_free(self) -> Optional[int]:
+        """The tail's free space (output units) over all its ports, or
+        None when every one is unbounded."""
+        frees = [f for f in (o.free_space() for o in self.tail_outs)
+                 if f is not None]
+        return min(frees) if frees else None
+
+    def _post(self, y, labels=None) -> None:
+        ys = y if isinstance(y, tuple) else (y,)
+        for out, dt, v in zip(self.tail_outs, self.tail_dtypes, ys):
+            out.post(DeviceChunk(v, dt), labels)
+
     def work(self) -> None:
         if not self.engaged:
+            return
+        if self.source is not None:
+            self._work_source()
             return
         if (any(p._messages for p in self.heads)
                 or self._epoch_sig() != self._epochs):
@@ -544,7 +695,7 @@ class FusedSegment:
                 # fused processing runs up to the label; the labeled
                 # region streams with exact per-sample semantics
                 avail = min(avail, limit)
-        free = self.tail_out.free_space()
+        free = self._tail_free()
         cap = avail if free is None else min(
             avail, max(self._free_to_input_units(free), 0))
         q = self._bucket(cap)
@@ -581,5 +732,45 @@ class FusedSegment:
             for b in self.blocks:
                 lb = b.fuse_label_adjust(lb)
             out_labels.append(lb)
-        self.tail_out.post(DeviceChunk(y, self.tail_dtype), out_labels)
+        self._post(y, out_labels)
         self.fused_elements += q
+
+    def _work_source(self) -> None:
+        """One fused quantum of a source-headed segment: generate q
+        samples where the source's table lies and run them through the
+        chain in the same step (no head port, no pull, no H2D)."""
+        if self._epoch_sig() != self._epochs:
+            self.disengage()
+            return
+        src = self.source
+        free = self._tail_free()
+        cap = src._source_quota if free is None else min(
+            src._source_quota, max(self._free_to_input_units(free), 0))
+        # the first quantum after a cold engage over-pulls the cold
+        # member's history: size the pull from what the quota leaves
+        # after it, so pull + over-pull never pass the quota
+        extra = self._cold_extra
+        body = max(cap - extra, 0)
+        q = self._bucket(body)
+        if q == 0:
+            # no more data is coming to a quota-driven segment: the
+            # residual below the MIN_PULL floor drains through SUB-FLOOR
+            # rungs (granule * 4^k) instead of disengaging into the
+            # streaming path
+            if body < self.granule or free == 0:
+                return
+            q = self.granule
+            while q * 4 <= body:
+                q *= 4
+        q += extra
+        self._cold_extra = 0
+        y, self.carries = self.step(q, self.carries, self.params)
+        src._source_quota = max(0, src._source_quota - q)
+        self._post(y)
+        self.fused_elements += q
+        if self._pair_pending:
+            # the first quantum warmed the cold FIR: re-engage so the
+            # pair peephole takes the combined operator
+            self._pair_pending = False
+            self.disengage()
+            self.try_engage()

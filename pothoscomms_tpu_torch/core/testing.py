@@ -165,3 +165,169 @@ def search_agreement(got, ref: dict, peak_floor: float = 1.0) -> dict:
         "peak_mismatch": int((peak != ref["corr_peak"])
                              [keep & ~near].sum()),
     }
+
+
+# ---------------------------------------------------------------------- #
+# The fusable math catalog, engaged (the CPU and card tests, chip_smoke)
+# ---------------------------------------------------------------------- #
+# name: (path, factory args, setter and value or None, dtype in, dtype out,
+#        feed, inputs, atol relative to max(1, max |output|) or None for
+#        bit for bit). Every math path whose block fuses at float32 or
+#        complex_float32 has one case (tests/test_torch_math_fusion.py
+#        checks the list is complete). Feeds: "normal" N(0, 1) (complex:
+#        both parts), "positive" U(0.1, 4), "offset" N(0, 1) + 3 (no zero
+#        denominators).
+FUSED_MATH_CASES = {
+    "arithmetic": ("/comms/arithmetic", ("DIV",), None, "complex_float32",
+                   "complex_float32", "offset", 2, 1e-5),
+    "comparator": ("/comms/comparator", (">",), None, "float32", "int8",
+                   "normal", 2, None),
+    "beta": ("/comms/beta", (), None, "float32", "float32", "positive", 2,
+             1e-5),
+    "const_arithmetic": ("/comms/const_arithmetic", ("X/K", 3.0), None,
+                         "float32", "float32", "normal", 1, 1e-6),
+    "const_comparator": ("/comms/const_comparator", (">=", 0.25), None,
+                         "float32", "int8", "normal", 1, None),
+    "scale": ("/comms/scale", (), ("set_factor", 1.5), "complex_float32",
+              "complex_float32", "normal", 1, 1e-6),
+    "rotate": ("/comms/rotate", (), ("set_phase", 0.4), "complex_float32",
+               "complex_float32", "normal", 1, 1e-5),
+    "abs": ("/comms/abs", (), None, "complex_float32", "float32", "normal",
+            1, 1e-5),
+    "angle": ("/comms/angle", (), None, "complex_float32", "float32",
+              "normal", 1, 1e-5),
+    "conjugate": ("/comms/conjugate", (), None, "complex_float32",
+                  "complex_float32", "normal", 1, None),
+    "sinc": ("/comms/sinc", (), None, "float32", "float32", "normal", 1,
+             1e-5),
+    "sigmoid": ("/comms/sigmoid", (), None, "float32", "float32", "normal",
+                1, 1e-5),
+    "rsqrt": ("/comms/rsqrt", (), None, "float32", "float32", "positive",
+              1, None),
+    "gamma": ("/comms/gamma", (), None, "float32", "float32", "positive",
+              1, 1e-4),
+    "lngamma": ("/comms/lngamma", (), None, "float32", "float32",
+                "positive", 1, 1e-5),
+    "erf": ("/comms/erf", (), None, "float32", "float32", "normal", 1,
+            1e-5),
+    "erfc": ("/comms/erfc", (), None, "float32", "float32", "normal", 1,
+             1e-5),
+    "trigonometric": ("/comms/trigonometric", ("ATAN",), None, "float32",
+                      "float32", "normal", 1, 1e-5),
+    "pow": ("/comms/pow", (1.5,), None, "float32", "float32", "positive",
+            1, 1e-5),
+    "sqrt": ("/comms/sqrt", (), None, "float32", "float32", "positive", 1,
+             1e-5),
+    "cbrt": ("/comms/cbrt", (), None, "float32", "float32", "positive", 1,
+             1e-5),
+    "nth_root": ("/comms/nth_root", (4.0,), None, "float32", "float32",
+                 "positive", 1, 1e-5),
+    "log": ("/comms/log", (), None, "float32", "float32", "positive", 1,
+            1e-5),
+    "log2": ("/comms/log2", (), None, "float32", "float32", "positive", 1,
+             1e-5),
+    "log10": ("/comms/log10", (), None, "float32", "float32", "positive",
+              1, 1e-5),
+    "log1p": ("/comms/log1p", (), None, "float32", "float32", "positive",
+              1, 1e-5),
+    "exp": ("/comms/exp", (), None, "float32", "float32", "normal", 1,
+            1e-5),
+    "exp2": ("/comms/exp2", (), None, "float32", "float32", "normal", 1,
+             1e-5),
+    "exp10": ("/comms/exp10", (), None, "float32", "float32", "normal", 1,
+              1e-5),
+    "expm1": ("/comms/expm1", (), None, "float32", "float32", "normal", 1,
+              1e-5),
+    "logN": ("/comms/logN", (3.0,), None, "float32", "float32", "positive",
+             1, 1e-5),
+    "expN": ("/comms/expN", (3.0,), None, "float32", "float32", "normal",
+             1, 1e-5),
+    "modf": ("/comms/modf", (), None, "float32", "float32", "normal", 1,
+             None),
+}
+
+
+def fused_math_feeds(name: str, n: int, seed: int = 0):
+    """The case's input arrays (one per input port), ``n`` samples each."""
+    _, _, _, din, _, feed, n_in, _ = FUSED_MATH_CASES[name]
+    rng = np.random.default_rng(seed)
+    cplx = din.startswith("complex")
+    out = []
+    for _ in range(n_in):
+        if feed == "positive":
+            x = rng.uniform(0.1, 4.0, n)
+        else:
+            x = rng.normal(size=n) * (8.0 if name == "modf" else 1.0)
+            x = x + (3.0 if feed == "offset" else 0.0)
+        if cplx:
+            x = x + 1j * rng.normal(size=n)
+        out.append(x.astype(np.complex64 if cplx else np.float32))
+    return out
+
+
+def fused_math_run(name: str, feeds, device="cpu", fuse: bool = True,
+                   threshold: int = 1 << 16):
+    """feeder(s) -> the case's block -> an exact hop -> collector(s) on
+    Topology(device) (ModF, a multi-output tail: an exact hop, then ModF,
+    then one collector a port), so the block joins a fused run of two.
+    The hop is bit-exact: conjugate, const_arithmetic X+K with K = 0, or
+    bitwise NOT on int8 verdicts. Returns ([outputs], topology)."""
+    from pothoscomms_tpu_torch.core.fixtures import (CollectorSink,
+                                                     FeederSource)
+    from pothoscomms_tpu_torch.core.registry import BlockRegistry
+    from pothoscomms_tpu_torch.core.topology import Topology
+
+    path, args, setter, din, dout, _, n_in, _ = FUSED_MATH_CASES[name]
+    blk = BlockRegistry.make(path, din, *args)
+    if setter:
+        getattr(blk, setter[0])(setter[1])
+
+    def hop(dt):
+        if dt == "int8":
+            return BlockRegistry.make("/comms/bitwise_unary", "int8", "NOT")
+        if dt.startswith("complex"):
+            return BlockRegistry.make("/comms/conjugate", dt)
+        return BlockRegistry.make("/comms/const_arithmetic", dt, "X+K", 0.0)
+
+    topo = Topology(device=device)
+    topo.auto_fuse = fuse
+    topo.fuse_threshold = threshold
+    tail_ports = list(blk.outputs)
+    if len(tail_ports) > 1:
+        head, tail = hop(din), blk
+        topo.connect(head, 0, blk, 0)
+    else:
+        head, tail = blk, hop(dout)
+        topo.connect(blk, 0, tail, 0)
+        tail_ports = [0]
+    for i, x in enumerate(feeds):
+        f = FeederSource(din)
+        f.feed_buffer(x)
+        topo.connect(f, 0, head, i)
+    sinks = []
+    for port in tail_ports:
+        s = CollectorSink(dout)
+        s.input(0).set_capacity(None)
+        topo.connect(tail, port, s, 0)
+        sinks.append(s)
+    topo.commit()
+    assert topo.wait_inactive(timeout=120.0)
+    return [s.get_buffer() for s in sinks], topo
+
+
+def fused_math_agree(name: str, got, ref) -> float:
+    """Hold the case's outputs to a reference run: bit for bit where the
+    case says so, else within its tolerance of max(1, max |ref|). Returns
+    the largest |got - ref| (raises AssertionError on disagreement)."""
+    atol = FUSED_MATH_CASES[name][7]
+    worst = 0.0
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype, (g.shape, r.shape)
+        d = np.abs(g.astype(np.complex128) - r.astype(np.complex128))
+        worst = max(worst, float(d.max()) if d.size else 0.0)
+        if atol is None:
+            assert np.array_equal(g, r), f"{name}: not bit-exact"
+        else:
+            bound = atol * max(1.0, float(np.max(np.abs(r))))
+            assert worst <= bound, f"{name}: {worst} > {bound}"
+    return worst

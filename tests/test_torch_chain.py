@@ -340,9 +340,9 @@ def test_package_imports_with_jax_blocked():
         "from pothoscomms_tpu_torch.design import (firdes, iirdes, remez,\n"
         "    windows)\n"
         "from pothoscomms_tpu_torch.ops import (bits, cint, digital_device,"
-        " filter,\n    framing, fxpt, gf2)\n"
+        " elementwise,\n    filter, framing, fxpt, gf2)\n"
         "from pothoscomms_tpu_torch.blocks import (demod, digital, fft, "
-        "filter,\n    framing)\n"
+        "filter,\n    framing, math, sources, window)\n"
         "assert not [m for m in sys.modules if m.startswith('jax')\n"
         "            and sys.modules[m] is not None]\n"
         "print('ok')\n")

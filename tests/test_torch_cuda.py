@@ -18,7 +18,11 @@ taken in another order, on outputs of order 1). S1 (the frame-sync
 search) and its plain version within the float64 oracle's bounds of
 tests/test_torch_framing.py; the modem segment on the card bit-exact
 with the CPU, labels included; the link on the card bit-exact on every
-channel.
+channel. The source-headed wave chain within 1e-4 of max |spectrum| of a
+float64 oracle; the noise walk on the card equal to its plain version bit
+for bit, and the FM segment it heads within 1e-4 of the CPU; each fusable
+math block on the card within the bound of core/testing.FUSED_MATH_CASES
+of its CPU streaming path (bit for bit where the case says so).
 """
 
 import numpy as np
@@ -39,6 +43,10 @@ from pothoscomms_tpu_torch.kernels.stream_scale import (stream_scale,
                                                         stream_scale_plain)
 from pothoscomms_tpu_torch.parallel.chain import (
     combined_fir_fft_operators, fir_fft_chain, stack_combined_operators)
+from pothoscomms_tpu_torch.core.testing import (FUSED_MATH_CASES,
+                                                fused_math_agree,
+                                                fused_math_feeds,
+                                                fused_math_run)
 from pothoscomms_tpu_torch.parallel.fft import fft_planar
 
 torch.set_num_threads(1)
@@ -848,3 +856,170 @@ def test_link_on_card_16_channels(dev):
     res = run_link(16, n_bits=64, seed=7, device=dev)
     assert sync_search.launches == before + 1
     assert res["all_exact"], res["bit_exact"]
+
+
+# ------------------------------------------------------------------ #
+# the sources and the math catalog on the card
+# ------------------------------------------------------------------ #
+def _wave_chain(taps, nb):
+    from pothoscomms_tpu_torch import BlockRegistry
+
+    src = BlockRegistry.make("/comms/waveform_source", "complex_float32")
+    src.set_waveform("SINE")
+    src.set_frequency(1.217e6)
+    src.set_sample_rate(30.72e6)
+    sc = BlockRegistry.make("/comms/scale", "complex_float32")
+    sc.set_factor(0.5)
+    rot = BlockRegistry.make("/comms/rotate", "complex_float32")
+    rot.set_phase(0.3)
+    fir = BlockRegistry.make("/comms/fir_filter", "complex_float32",
+                             "COMPLEX")
+    fir.set_taps(taps)
+    return [src, sc, rot, fir,
+            BlockRegistry.make("/comms/fft", "complex_float32", nb, False)]
+
+
+def test_wave_chain_on_card_matches_float64_oracle(dev):
+    """waveform -> scale -> rotate -> FIR(64) -> FFT(1024) on Topology()
+    at 2^20 samples: one source-headed segment engaged cold, cycling to the
+    K1 pair (every K1 launch on the tensor cores), every window within
+    1e-4 of max |spectrum| of a float64 oracle of the same table walk."""
+    from pothoscomms_tpu_torch import Topology
+    from pothoscomms_tpu_torch.core.fixtures import CollectorSink
+
+    rng = np.random.default_rng(3)
+    k, nb, n = 64, 1024, 1 << 20
+    taps = (rng.normal(size=k) + 1j * rng.normal(size=k)) / k
+    blocks = _wave_chain(taps, nb)
+    sink = CollectorSink("complex_float32")
+    topo = Topology(device=dev)
+    for a, b in zip(blocks, blocks[1:] + [sink]):
+        topo.connect(a, 0, b, 0)
+    by_variant = dict(cgemm.launches_by_variant)
+    topo.run_source_elements(n)
+    torch.cuda.synchronize()
+    seg = topo._segments[0]
+    assert seg.blocks == blocks and seg.cold_engages == 1
+    assert seg.pair_engaged and seg.engage_count == 2
+    took = {v: cgemm.launches_by_variant[v] - by_variant[v]
+            for v in by_variant}
+    assert took[TENSOR_CORES] >= 2 and took[SIMT] == 0
+    got = sink.get_buffer()
+    nw = (n - (k - 1)) // nb
+    assert got.shape == (nw * nb,)
+    src = blocks[0]
+    seq = src._table.astype(np.complex128)[
+        (np.arange(n) * src._step) & src._mask] * 0.5 * np.exp(0.3j)
+    y = np.convolve(seq, taps, "valid")[: nw * nb]
+    exp = np.fft.fft(y.reshape(nw, nb), axis=-1)
+    err = np.abs(got.reshape(nw, nb) - exp).max(1) / np.abs(exp).max(1)
+    assert err.max() < 1e-4
+
+
+def _noise_fm(seed=11):
+    from pothoscomms_tpu_torch import BlockRegistry
+
+    src = BlockRegistry.make("/comms/noise_source", "complex_float32", seed)
+    src.set_waveform("NORMAL")
+    src.set_fast(True)
+    return [src] + _fm_blocks(32, 2, 4.0, 16.0)
+
+
+def test_noise_fm_segment_on_card_matches_plain_walk(dev):
+    """noise_source -> freq_demod -> dc_removal -> envelope as one
+    source-headed segment on the card: every generated quantum equals the
+    walk's plain version (blocks/sources.noise_walk_plain) bit for bit,
+    and the outputs equal the same topology on the CPU (the same seed
+    draws the same walk) within 1e-4."""
+    from pothoscomms_tpu_torch import Topology
+    from pothoscomms_tpu_torch.blocks.sources import noise_walk_plain
+    from pothoscomms_tpu_torch.core.fixtures import CollectorSink
+
+    n = (1 << 18) + 5
+
+    def run(device, walks):
+        blocks = _noise_fm()
+        src = blocks[0]
+        export = src.fuse_source_export
+
+        def noting(channels):
+            carry, step, params = export(channels)
+
+            def noted(c, t, table):
+                c2, y = step(c, t, table)
+                walks.append((c, t, y[0].cpu().numpy(),
+                              table.cpu().numpy()))
+                return c2, y
+
+            return carry, noted, params
+
+        src.fuse_source_export = noting
+        sink = CollectorSink("float32")
+        topo = Topology(device=device)
+        topo.fuse_threshold = 4096
+        for a, b in zip(blocks, blocks[1:] + [sink]):
+            topo.connect(a, 0, b, 0)
+        before = envelope_rows.launches
+        topo.run_source_elements(n)
+        torch.cuda.synchronize()
+        return sink.get_buffer(), topo, envelope_rows.launches - before
+
+    walks = []
+    got, topo, launched = run(dev, walks)
+    seg = topo._segments[0]
+    assert len(seg.blocks) == 4 and seg.source is topo.blocks[0]
+    assert launched >= 1 and walks
+    for c, t, y, table in walks:
+        np.testing.assert_array_equal(y, noise_walk_plain(table, c, t)[1])
+    ref, _, _ = run("cpu", [])
+    assert got.shape == ref.shape == (n,)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", list(FUSED_MATH_CASES))
+def test_fusable_math_block_on_card_matches_cpu(dev, name):
+    """Each fusable math block with an exact hop, engaged on the card,
+    against the same topology streaming on the CPU: bit for bit where the
+    case says so, else within its bound (core/testing.py)."""
+    feeds = fused_math_feeds(name, (1 << 16) + 17, 7)
+    got, topo = fused_math_run(name, feeds, device=dev, threshold=4096)
+    ref, _ = fused_math_run(name, feeds, device="cpu", fuse=False)
+    assert topo._segments[0].fused_elements >= 1 << 16
+    fused_math_agree(name, got, ref)
+
+
+def test_source_quota_never_overshot_on_card(dev):
+    """A cold engage at a quota of one fuse floor (4096, K = 17, 256
+    bins): the source generates exactly its quota and the spectra equal
+    the streaming path on the CPU."""
+    from pothoscomms_tpu_torch import BlockRegistry, Topology
+    from pothoscomms_tpu_torch.core.fixtures import CollectorSink
+
+    rng = np.random.default_rng(3)
+    taps = (rng.normal(size=17) + 1j * rng.normal(size=17)) / 17
+
+    def run(device, fuse):
+        src = BlockRegistry.make("/comms/waveform_source", "complex_float32")
+        src.set_waveform("SINE")
+        src.set_frequency(1000.0)
+        src.set_sample_rate(48000.0)
+        fir = BlockRegistry.make("/comms/fir_filter", "complex_float32",
+                                 "COMPLEX")
+        fir.set_taps(taps)
+        fft = BlockRegistry.make("/comms/fft", "complex_float32", 256, False)
+        sink = CollectorSink("complex_float32")
+        topo = Topology(device=device)
+        topo.auto_fuse = fuse
+        topo.fuse_threshold = 4096
+        for a, b in ((src, fir), (fir, fft), (fft, sink)):
+            topo.connect(a, 0, b, 0)
+        topo.run_source_elements(4096)
+        return sink.get_buffer(), topo, src
+
+    got, topo, src = run(dev, True)
+    seg = topo._segments[0]
+    assert seg.cold_engages == 1
+    assert seg.fused_elements + src.output(0).total_produced == 4096
+    ref, _, _ = run("cpu", False)
+    assert got.shape == ref.shape == (15 * 256,)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-4)

@@ -45,6 +45,11 @@ def _lone(path, *args):
     return pkg.BlockRegistry.make(path, *args)
 
 
+def _active(blk):
+    blk._active = True
+    return blk
+
+
 def _frame_sync_search():
     fs = _lone("/comms/frame_sync", "complex_float32")
     fs._search_arrays(np.zeros(1024, np.complex64), 8)
@@ -88,6 +93,11 @@ ENTRY_POINTS = {
     "make_channel_search": lambda: link.make_channel_search(
         [1.0], 20, 4, 0.01, 100)[0](_zeros(2, 1024, 2)),
     "run_link": lambda: link.run_link(1, 16)["x"],
+    # the sources and the math catalog
+    "waveform_source_fuse_source_export": lambda: _active(_lone(
+        "/comms/waveform_source", "complex_float32")).fuse_source_export(1),
+    "noise_source_fuse_source_export": lambda: _active(_lone(
+        "/comms/noise_source", "complex_float32", 3)).fuse_source_export(1),
 }
 
 
@@ -158,3 +168,36 @@ def test_topology_without_a_device_does_not_fall_back_to_the_cpu():
         with pytest.raises((AssertionError, RuntimeError)):
             topo.commit()
             topo.wait_inactive()
+
+
+def _const_arithmetic_work():
+    blk = _lone("/comms/const_arithmetic", "float32", "X+K", 1.0)
+    blk.input(0).push_buffer(np.ones(8, np.float32))
+    blk.work()
+
+
+MATH_STREAMS = {  # a lone float32 math block's streaming core, no device
+    "scale": lambda: _lone("/comms/scale", "complex_float32")._kernel(
+        np.ones(4, np.complex64)),
+    "rotate": lambda: _lone("/comms/rotate", "complex_float32")._kernel(
+        np.ones(4, np.complex64)),
+    "const_arithmetic": _const_arithmetic_work,
+}
+
+
+@pytest.mark.parametrize("name", list(MATH_STREAMS))
+def test_lone_math_and_source_blocks_resolve_to_the_card(name):
+    """A math or source block outside any topology names the card as its
+    device, and its float32 work runs there (raising without a card)."""
+    for path, args in (("/comms/scale", ("float32",)),
+                       ("/comms/abs", ("complex_float32",)),
+                       ("/comms/modf", ("float32",)),
+                       ("/comms/arithmetic", ("complex_float32", "ADD")),
+                       ("/comms/waveform_source", ("complex_float32",)),
+                       ("/comms/noise_source", ("complex_float32",))):
+        assert _lone(path, *args).device == torch.device("cuda")
+    if torch.cuda.is_available():
+        MATH_STREAMS[name]()
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            MATH_STREAMS[name]()

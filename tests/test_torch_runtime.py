@@ -125,7 +125,7 @@ def test_registry_make_and_paths():
         BlockRegistry.make("/comms/nonexistent")
     # its own registry: the JAX package's other blocks are not in it
     assert set(BlockRegistry.paths()) < set(jpkg.BlockRegistry.paths())
-    assert not BlockRegistry.exists("/comms/arithmetic")
+    assert not BlockRegistry.exists("/comms/signal_probe")
 
 
 def test_feed_test_plan_roundtrip_equals_jax():
