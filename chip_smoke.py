@@ -181,7 +181,30 @@ Phases, one or more lines each:
      arithmetic(ADD) -> FFT(1024) at 2^24 + 3089 samples an input, one
      segment with two heads on K2, four windows within 1e-4 of max
      |spectrum| of float64; (c) abs -> modf engaged with its two-output
-     tail, equal to the CPU bit for bit.
+     tail, equal to the CPU bit for bit;
+ 26. the control plane on the card (phase_26), each sub-path at the block
+     API's full pull of 2^24 samples: (a) path "control_plane_split":
+     feeder -> FIR (64 complex taps; K1) -> split_complex; re ->
+     threshold(0.5, -0.5) -> abs -> collector, im -> collector and a
+     signal_probe (RMS, 2^20): the FIR and split one engaged segment, the
+     threshold heading a second (a multi-output tail ends a run), both
+     planes within 1e-5 of max |y| of a float64 numpy oracle, the
+     threshold's state equal to the host walk over the oracle, the probe
+     on its device path within rel 1e-3 of numpy, and its reduction timed;
+     (b) path "control_plane_fanin": two float32 feeders ->
+     combine_complex -> FFT(1024; K2) with a complex probe on the
+     spectra, held to float64 numpy (abs err < 0.01); (c) path
+     "control_plane_trigger": FIR (64 taps of 1/64, dyadic data) ->
+     split_complex -> a two-port wave_trigger (POS, 1024 points, 4
+     windows), its packets' positions, labels and metadata equal to a
+     Topology(device="cpu") run; (d) path "control_plane_mac": two MAC +
+     LLC stacks, 8 payloads of 64 bytes, lossless and through sporadic
+     droppers; (e) query_stats after (a) (every edge conserves its
+     samples), path "checkpoint": FIR -> envelope (K1, E1) checkpointed
+     with save_state while engaged, resumed by load_state in a fresh
+     topology on the card, within 1e-3 of an uninterrupted run, and the
+     catalog of all 116 paths without JAX. K1 is held against its plain
+     version at every shape these paths launched.
 Then a JSON line of per-kernel results (with each kernel's bound_ms and
 bound_by, from this run's shapes and the H100's published peaks, and
 library_ms, one PyTorch call computing the same function, or null) and,
@@ -239,6 +262,508 @@ def check(cond: bool, msg: str) -> None:
     """Stop the run, exit code 1 and no result line, unless ``cond``."""
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+N26 = 1 << 24  # the block API's full pull (the ladder's top with 1024 bins)
+
+
+def phase_26(c, n=N26):
+    """[26] the control plane on the card, at the block API's full pull.
+
+    ``c`` holds what main() set up: the device and the card's name and
+    power limit, ``check``, the launch counters, ``watched``, ``k1_at``
+    and the E1 shape notes, the timing helpers and the modules that bind
+    K1. Returns the launch counts of each sub-path and the errors held.
+    """
+    import pickle
+
+    import scipy.signal
+    import torch
+
+    from pothoscomms_tpu_torch import BlockRegistry, Packet, Topology
+    from pothoscomms_tpu_torch.blocks import utility
+    from pothoscomms_tpu_torch.core.fixtures import (CollectorSink,
+                                                     FeederSource)
+    from pothoscomms_tpu_torch.core.fusion import DeviceChunk
+    from pothoscomms_tpu_torch.core.introspect import catalog
+
+    dev, card, check = c.dev, c.card, c.check
+    rng = np.random.default_rng(26)
+    K, NB = 64, 1024
+    launches, errs26 = {}, {}
+
+    def drive(topo, what, timeout=600.0):
+        """Unbounded edges (so the pull is the whole backlog), then the
+        wall from commit() to wait_inactive()."""
+        for b in topo.blocks:
+            for p in b.inputs.values():
+                p.set_capacity(None)
+        t0 = time.perf_counter()
+        topo.commit()
+        check(topo.wait_inactive(timeout=timeout), f"{what} did not finish")
+        c.sync()
+        return time.perf_counter() - t0
+
+    def named(blk, name):
+        blk.name = name
+        return blk
+
+    k1_calls = {}
+
+    def note_k1(path):
+        def note(args, out):
+            key = (tuple(args[0].shape[:2]), tuple(args[1].shape))
+            k1_calls.setdefault(key, [0, args[:3], path])[0] += 1
+        return note
+
+    @contextlib.contextmanager
+    def k1_watched(path):
+        with contextlib.ExitStack() as stack:
+            for mod in c.k1_modules:
+                stack.enter_context(c.watched(mod, "cgemm", note_k1(path)))
+            yield
+
+    # -- (a) FIR -> split_complex; re -> threshold -> abs; im -> a probe --
+    taps = (rng.normal(size=K) + 1j * rng.normal(size=K)) / K
+    xa = rng.standard_normal(2 * (n + K - 1), dtype=np.float32).view(
+        np.complex64)
+    fir = named(BlockRegistry.make("/comms/fir_filter", "complex_float32",
+                                   "COMPLEX"), "fir")
+    fir.set_taps(taps)
+    split = named(BlockRegistry.make("/comms/split_complex", "float32"),
+                  "split_complex")
+    th = named(BlockRegistry.make("/comms/threshold", "float32"),
+               "threshold")
+    th.set_activation_level(0.5)
+    th.set_deactivation_level(-0.5)
+    ab = named(BlockRegistry.make("/comms/abs", "float32"), "abs")
+    probe = named(BlockRegistry.make("/comms/signal_probe", "float32"),
+                  "probe")
+    probe.set_mode("RMS")
+    probe.set_window(1 << 20)
+    feed = named(FeederSource("complex_float32"), "feeder")
+    s_re = named(CollectorSink("float32"), "collector_re")
+    s_im = named(CollectorSink("float32"), "collector_im")
+    topo_a = Topology()
+    for a_, ap, b_, bp in ((feed, 0, fir, 0), (fir, 0, split, 0),
+                           (split, "re", th, 0), (th, 0, ab, 0),
+                           (ab, 0, s_re, 0), (split, "im", s_im, 0),
+                           (split, "im", probe, 0)):
+        topo_a.connect(a_, ap, b_, bp)
+    feed.feed_buffer(xa)
+    probe_calls = []
+
+    def note_probe(args, out):
+        probe_calls.append(({p.planar.device.type for p in args[1]
+                             if isinstance(p, DeviceChunk)},
+                            sum(len(p) for p in args[1])))
+
+    c.zero_counts()
+    with c.watched(utility.SignalProbe, "_probe_device", note_probe), \
+            k1_watched("control_plane_split"):
+        wall_a = drive(topo_a, "[26](a)")
+    launches["control_plane_split"] = c.read_counts()
+    seg_of = {id(s.blocks[0]): s for s in topo_a._segments}
+    seg1, seg2 = seg_of.get(id(fir)), seg_of.get(id(th))
+    print(f"[26](a) feeder -> FIR({K} complex taps) -> split_complex; re -> "
+          f"threshold(0.5, -0.5) -> abs -> collector; im -> collector and "
+          f"signal_probe(RMS, 2^20) on {topo_a.device}, {n + K - 1} samples:"
+          f" launches {launches['control_plane_split']}; segments "
+          + ", ".join(f"{[type(b).__name__ for b in s.blocks]} "
+                      f"({s.fused_elements} fused)" for s in topo_a._segments)
+          + f"; {wall_a:.3f} s from commit() to wait_inactive() on {card}")
+    # a multi-output tail ends a run (both packages): the threshold heads
+    # a second segment, fed the split's re plane on the card
+    check(seg1 is not None and [type(b).__name__ for b in seg1.blocks]
+          == ["FIRFilter", "SplitComplex"] and seg1.fused_elements == n,
+          "the FIR and split did not run as one engaged segment")
+    check(seg2 is not None and seg2.fused_elements == n,
+          "the threshold did not run engaged on the split's re plane")
+    check(launches["control_plane_split"]["cgemm"] >= 1,
+          "[26](a) did not launch K1")
+    y = scipy.signal.fftconvolve(xa.astype(np.complex128), taps, "valid")
+    scale_a = np.max(np.abs(y))
+    got_re, got_im = s_re.get_buffer(), s_im.get_buffer()
+    check(got_re.shape == got_im.shape == (n,),
+          f"[26](a) planes of {got_re.shape}, {got_im.shape}")
+    errs26["split_re"] = np.max(np.abs(got_re - np.abs(y.real))) / scale_a
+    errs26["split_im"] = np.max(np.abs(got_im - y.imag)) / scale_a
+    print(f"[26](a) |re| and im planes against the float64 numpy oracle: "
+          f"/max|y| {errs26['split_re']:.3e} and {errs26['split_im']:.3e} "
+          f"(limit 1e-5), on {card}")
+    check(max(errs26["split_re"], errs26["split_im"]) < 1e-5,
+          "[26](a) planes disagree with the float64 oracle")
+    # query_stats while the segments are engaged: every edge conserves its
+    # samples (produced = consumed + queued downstream); the interior edge
+    # of an engaged segment counts only what streamed, as in the JAX
+    # package
+    stats = topo_a.query_stats()
+    edges = []
+    for blk in topo_a.blocks:
+        for oname, out in blk.outputs.items():
+            for port in out.downstream:
+                produced = stats[blk.name]["outputs"][oname]["produced"]
+                down = stats[port.block.name]["inputs"][port.name]
+                edges.append((f"{blk.name}[{oname}]->{port.block.name}",
+                              produced, down["consumed"], down["queued"]))
+    print(f"[26](e) query_stats after (a), (produced, consumed, queued) an "
+          f"edge: " + ", ".join(f"{e[0]} {e[1:]}" for e in edges)
+          + f"; on {card}")
+    check(all(p == cs + q for _, p, cs, q in edges),
+          "[26](e) an edge's produced count is not its consumed + queued")
+    expect = {"feeder": ("outputs", "0", "produced", n + K - 1),
+              "fir": ("inputs", "0", "consumed", n + K - 1),
+              "threshold": ("inputs", "0", "consumed", n),
+              "collector_re": ("inputs", "0", "consumed", n),
+              "collector_im": ("inputs", "0", "consumed", n),
+              "probe": ("inputs", "0", "consumed", n)}
+    for name, (side, port, key, want) in expect.items():
+        check(stats[name][side][port][key] == want,
+              f"[26](e) {name} {key} {stats[name][side][port][key]}, "
+              f"expected {want}")
+    check(stats["split_complex"]["outputs"]["re"]["produced"] == n
+          and stats["abs"]["outputs"]["0"]["produced"] == n,
+          "[26](e) the segment tails did not count their outputs")
+    # the threshold's state comes home from its carry on disengage
+    seg2.disengage()
+    walk = False
+    re64 = y.real
+    for i in np.nonzero((re64 > 0.5) | (re64 < -0.5))[0]:
+        if not walk and re64[i] > 0.5:
+            walk = True
+        elif walk and re64[i] < -0.5:
+            walk = False
+    print(f"[26](a) threshold state after {n} samples: {th._active_state}; "
+          f"the host walk over the oracle's re plane: {walk}; on {card}")
+    check(th._active_state == walk,
+          "[26](a) the threshold's state differs from the host walk")
+    rms_ref = float(np.sqrt(np.mean(y.imag[-(1 << 20):] ** 2)))
+    print(f"[26](a) probe RMS {probe.value():.9f}, numpy over the oracle's "
+          f"last 2^20 im samples {rms_ref:.9f} (rel "
+          f"{abs(probe.value() / rms_ref - 1):.2e}, limit 1e-3); probe "
+          f"device-path calls {probe_calls}, on {card}")
+    check(abs(probe.value() / rms_ref - 1) < 1e-3,
+          "[26](a) the probe's RMS disagrees with numpy")
+    check(bool(probe_calls) and all(d == {dev.type} for d, _ in probe_calls),
+          "[26](a) the probe did not take its device path on the card")
+    chunk = DeviceChunk(torch.from_numpy(y.imag[-(1 << 20):].astype(
+        np.float32)).to(dev), "float32")
+    probe_ms = c.event_ms(lambda: probe._probe_device([chunk]), [()])
+    # six device events a call: the cast to float64, the square, the mean
+    # (a memset and the reduction), the scalar's copy to the host
+    probe_dev_ms = c.device_ms(lambda: probe._probe_device([chunk]), [()],
+                               per_call=6)
+    print(f"[26](a) the probe's reduction of 2^20 samples on the card: "
+          f"{probe_ms:.4f} ms by events (with the scalar's copy to the host)"
+          f", {c.f4(probe_dev_ms)} ms of device time, on {card}")
+    del topo_a, s_re, s_im, y, xa
+
+    # -- (b) fan-in: two float32 planes -> combine_complex -> FFT(1024) --
+    pa = rng.standard_normal(n, dtype=np.float32)
+    pb = rng.standard_normal(n, dtype=np.float32)
+    cc = BlockRegistry.make("/comms/combine_complex", "float32")
+    fft = BlockRegistry.make("/comms/fft", "complex_float32", NB, False)
+    sink_b = CollectorSink("complex_float32")
+    probe_b = BlockRegistry.make("/comms/signal_probe", "complex_float32")
+    probe_b.set_mode("RMS")
+    probe_b.set_window(1 << 20)
+    f1, f2 = FeederSource("float32"), FeederSource("float32")
+    topo_b = Topology()
+    for a_, ap, b_, bp in ((f1, 0, cc, "re"), (f2, 0, cc, "im"),
+                           (cc, 0, fft, 0), (fft, 0, sink_b, 0),
+                           (fft, 0, probe_b, 0)):
+        topo_b.connect(a_, ap, b_, bp)
+    f1.feed_buffer(pa)
+    f2.feed_buffer(pb)
+    probe_calls.clear()
+    c.zero_counts()
+    with c.watched(utility.SignalProbe, "_probe_device", note_probe):
+        wall_b = drive(topo_b, "[26](b)")
+    launches["control_plane_fanin"] = c.read_counts()
+    seg_b = topo_b._segments[0] if topo_b._segments else None
+    print(f"[26](b) two float32 feeders -> combine_complex -> FFT({NB}) -> "
+          f"collector and signal_probe(RMS) on {topo_b.device}, 2 x {n} "
+          f"samples: launches {launches['control_plane_fanin']}; segment of "
+          f"{len(seg_b.blocks) if seg_b else 0} blocks with "
+          f"{len(seg_b.heads) if seg_b else 0} heads, "
+          f"{seg_b.fused_elements if seg_b else 0} fused; {wall_b:.3f} s "
+          f"from commit() to wait_inactive() on {card}")
+    check(seg_b is not None and len(seg_b.heads) == 2
+          and seg_b.fused_elements == n,
+          "[26](b) combine_complex -> FFT did not run as one fan-in segment")
+    check(launches["control_plane_fanin"]["fft_c2c"] >= 1,
+          "[26](b) did not launch K2")
+    spec = np.fft.fft((pa.astype(np.float64) + 1j * pb).reshape(-1, NB),
+                      axis=1).reshape(-1)
+    got_b = sink_b.get_buffer()
+    check(got_b.shape == spec.shape, f"[26](b) {got_b.shape} outputs")
+    errs26["fanin_fft_abs"] = float(np.max(np.abs(got_b - spec)))
+    rms_b = float(np.sqrt(np.mean(np.abs(spec[-(1 << 20):]) ** 2)))
+    print(f"[26](b) spectra against float64 numpy: max abs err "
+          f"{errs26['fanin_fft_abs']:.3e} (the FFT contract: < 0.01); probe "
+          f"RMS {probe_b.value():.6f} against {rms_b:.6f} (rel "
+          f"{abs(probe_b.value() / rms_b - 1):.2e}, limit 1e-3), device-path"
+          f" calls {probe_calls}, on {card}")
+    check(errs26["fanin_fft_abs"] < 0.01,
+          "[26](b) spectra breach the FFT contract")
+    check(abs(probe_b.value() / rms_b - 1) < 1e-3 and bool(probe_calls)
+          and all(d == {dev.type} for d, _ in probe_calls),
+          "[26](b) the complex probe disagrees or missed its device path")
+    del topo_b, sink_b, spec, got_b, pa, pb
+
+    # -- (c) scope trigger: FIR -> split (fused, on the card) -> a 2-port
+    # wave_trigger. The stream and the taps are dyadic (multiples of 1/8,
+    # taps 1/64), so the FIR's sums are exact on the card and on the CPU
+    # alike and the trigger positions can be held equal.
+    nc = n + K - 1
+    # a square wave of period 2^21: 8 rising edges, two events of 4 windows
+    edge = np.where((np.arange(nc) >> 20) & 1, 1.0, -1.0)
+    xc = (edge + rng.integers(-2, 3, nc) / 8
+          + 1j * rng.integers(-8, 9, nc) / 8).astype(np.complex64)
+
+    def scope(where):
+        fir_c = BlockRegistry.make("/comms/fir_filter", "complex_float32",
+                                   "COMPLEX")
+        fir_c.set_taps(np.full(K, 1 / K, np.complex128))
+        split_c = BlockRegistry.make("/comms/split_complex", "float32")
+        trig = BlockRegistry.make("/comms/wave_trigger")
+        trig.set_num_ports(2)
+        trig.set_slope("POS")
+        trig.set_level(0.5)
+        trig.set_num_points(1024)
+        trig.set_num_windows(4)
+        trig.set_hold_off(0)
+        trig.set_mode("NORMAL")
+        trig.set_event_rate(1e6)
+        feed_c = FeederSource("complex_float32")
+        pk = CollectorSink("float32")
+        topo = Topology(device=where)
+        for a_, ap, b_, bp in ((feed_c, 0, fir_c, 0), (fir_c, 0, split_c, 0),
+                               (split_c, "re", trig, 0),
+                               (split_c, "im", trig, 1), (trig, 0, pk, 0)):
+            topo.connect(a_, ap, b_, bp)
+        feed_c.feed_buffer(xc)
+        wall = drive(topo, f"[26](c) on {where}")
+        seg = topo._segments[0] if topo._segments else None
+        return pk.packets, seg, wall
+
+    c.zero_counts()
+    with k1_watched("control_plane_trigger"):
+        pk_card, seg_c, wall_c = scope(dev)
+    launches["control_plane_trigger"] = c.read_counts()
+    pk_cpu, _, wall_c_cpu = scope("cpu")
+    print(f"[26](c) feeder -> FIR({K} taps of 1/{K}) -> split_complex -> "
+          f"wave_trigger(2 ports, POS 0.5, 1024 points, 4 windows, NORMAL) "
+          f"on the card, {nc} samples: launches "
+          f"{launches['control_plane_trigger']}; segment "
+          f"{[type(b).__name__ for b in seg_c.blocks] if seg_c else None} "
+          f"({seg_c.fused_elements if seg_c else 0} fused); {len(pk_card)} "
+          f"packets; {wall_c:.3f} s from commit() to wait_inactive() on "
+          f"{card} ({wall_c_cpu:.3f} s on Topology(device='cpu'))")
+    check(seg_c is not None and seg_c.fused_elements == n,
+          "[26](c) the FIR and split did not run engaged on the card")
+    check(launches["control_plane_trigger"]["cgemm"] >= 1,
+          "[26](c) did not launch K1")
+    check(len(pk_card) == len(pk_cpu) >= 4,
+          f"[26](c) {len(pk_card)} packets on the card, {len(pk_cpu)} on the "
+          f"CPU")
+    worst_c = 0.0
+    for p_card, p_cpu in zip(pk_card, pk_cpu):
+        same = (p_card.metadata == p_cpu.metadata
+                and [(lb.id, lb.index) for lb in p_card.labels]
+                == [(lb.id, lb.index) for lb in p_cpu.labels])
+        check(same and p_card.payload.shape == p_cpu.payload.shape == (1024,),
+              f"[26](c) packet {p_card.metadata} differs from the CPU's "
+              f"{p_cpu.metadata}")
+        worst_c = max(worst_c, float(np.max(np.abs(
+            p_card.payload - p_cpu.payload))))
+    errs26["trigger_samples_abs"] = worst_c
+    print(f"[26](c) packets on the card against Topology(device='cpu'): "
+          f"positions, labels and metadata equal; samples max |d| "
+          f"{worst_c:.3e} (limit 1e-5; the FIR's sums are exact here); "
+          f"trigger positions "
+          f"{[round(float(p.metadata['position']), 4) for p in pk_card if p.metadata['index'] == 0]}"
+          f", on {card}")
+    check(worst_c <= 1e-5, "[26](c) captured samples differ from the CPU's")
+
+    # -- (d) two MAC + LLC stacks back to back, lossless then lossy -----
+    def stacks(droppers):
+        feed_a, feed_b = FeederSource("uint8"), FeederSource("uint8")
+        coll_b = CollectorSink("uint8")
+        llcs, macs = [], []
+        for i, (me, peer) in enumerate(((0xA, 0xB), (0xB, 0xA))):
+            llc = BlockRegistry.make("/comms/simple_llc", 11 + i)
+            llc.set_recipient(peer)
+            llc.set_port(123)
+            llc.set_resend_timeout(0.005)
+            llc.set_expire_timeout(5.0)
+            mac = BlockRegistry.make("/comms/simple_mac")
+            mac.set_mac_id(me)
+            llcs.append(llc)
+            macs.append(mac)
+        topo = Topology()
+        for a_, ap, b_, bp in (
+                (feed_a, 0, llcs[0], "dataIn"), (feed_b, 0, llcs[1], "dataIn"),
+                (llcs[1], "dataOut", coll_b, 0),
+                (llcs[0], "macOut", macs[0], "macIn"),
+                (macs[0], "macOut", llcs[0], "macIn"),
+                (llcs[1], "macOut", macs[1], "macIn"),
+                (macs[1], "macOut", llcs[1], "macIn")):
+            topo.connect(a_, ap, b_, bp)
+        if droppers is None:
+            topo.connect(macs[0], "phyOut", macs[1], "phyIn")
+            topo.connect(macs[1], "phyOut", macs[0], "phyIn")
+        else:
+            topo.connect(macs[0], "phyOut", droppers[0], 0)
+            topo.connect(droppers[0], 0, macs[1], "phyIn")
+            topo.connect(macs[1], "phyOut", droppers[1], 0)
+            topo.connect(droppers[1], 0, macs[0], "phyIn")
+        return topo, feed_a, coll_b, llcs, macs
+
+    payloads = [rng.integers(0, 256, 64).astype(np.uint8) for _ in range(8)]
+    c.zero_counts()
+    for lossy in (False, True):
+        droppers = None
+        if lossy:
+            droppers = []
+            for s in (42, 43):
+                d = BlockRegistry.make("/blocks/sporadic_dropper", s)
+                d.set_probability(0.2)
+                droppers.append(d)
+        topo_d, feed_a, coll_b, llcs, macs = stacks(droppers)
+        for p in payloads:
+            feed_a.feed_packet(Packet(p.copy()))
+        t0 = time.perf_counter()
+        topo_d.commit()
+        check(topo_d.wait_inactive(timeout=20.0), "[26](d) did not finish")
+        wall_d = time.perf_counter() - t0
+        exact = len(coll_b.packets) == len(payloads) and all(
+            np.array_equal(g.payload, e)
+            for g, e in zip(coll_b.packets, payloads))
+        print(f"[26](d) MAC + LLC back to back "
+              f"{'through sporadic droppers (0.2, seeds 42, 43)' if lossy else 'lossless'}"
+              f": {len(coll_b.packets)} of {len(payloads)} payloads of 64 "
+              f"bytes delivered in order and exact: {exact}; MAC errors "
+              f"{[m.get_error_count() for m in macs]}, LLC resends "
+              f"{[l_.getResendCount() for l_ in llcs]}, expired "
+              f"{[l_.getExpiredCount() for l_ in llcs]}; {wall_d:.3f} s on "
+              f"the host of {card}")
+        check(exact and llcs[0].getExpiredCount() == 0,
+              "[26](d) a payload was lost, reordered or changed")
+        if lossy:
+            check(llcs[0].getResendCount() >= 1,
+                  "[26](d) the lossy link never made the LLC resend")
+        else:
+            check(all(m.get_error_count() == 0 for m in macs),
+                  "[26](d) MAC errors on the lossless link")
+    launches["control_plane_mac"] = c.read_counts()
+
+    # -- (e) a checkpoint taken while FIR -> envelope is engaged ----------
+    xe = rng.standard_normal(n, dtype=np.float32)
+    # the FIR's 12 samples of history, then whole pulls: the head drains
+    # and the segment stays engaged
+    half = 12 + n // 2
+
+    def fir_env():
+        fir_e = BlockRegistry.make("/comms/fir_filter", "float32", "REAL")
+        fir_e.set_taps(np.hamming(13) / 7)
+        env = BlockRegistry.make("/comms/envelope_detector", "float32")
+        feed_e = FeederSource("float32")
+        sink_e = CollectorSink("float32")
+        topo = Topology()
+        for a_, b_ in ((feed_e, fir_e), (fir_e, env), (env, sink_e)):
+            topo.connect(a_, 0, b_, 0)
+        return topo, feed_e, sink_e
+
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_26.pkl"
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    since = len(c.e1_launched)
+    c.zero_counts()
+    with c.watched(c.fops, "envelope_rows", c.note_e1), \
+            k1_watched("checkpoint"):
+        topo1, feed1, sink1 = fir_env()
+        feed1.feed_buffer(xe[:half])
+        wall_e1 = drive(topo1, "[26](e) first half")
+        seg_e = topo1._segments[0] if topo1._segments else None
+        check(seg_e is not None and seg_e.engaged,
+              "[26](e) the FIR -> envelope segment is not engaged at the "
+              "checkpoint")
+        t0 = time.perf_counter()
+        topo1.save_state(str(ckpt))
+        t_save = time.perf_counter() - t0
+        size = ckpt.stat().st_size
+        with open(ckpt, "rb") as f:
+            blob = pickle.load(f)
+
+        def tensors(obj):
+            if isinstance(obj, torch.Tensor):
+                return 1
+            if isinstance(obj, dict):
+                return sum(tensors(v) for v in obj.values())
+            if isinstance(obj, (list, tuple, set)):
+                return sum(tensors(v) for v in obj)
+            return 0
+
+        check(tensors(blob) == 0, "[26](e) the checkpoint holds a tensor")
+        del blob
+        first = sink1.get_buffer()
+        topo2, feed2, sink2 = fir_env()
+        topo2.commit()
+        t0 = time.perf_counter()
+        topo2.load_state(str(ckpt))
+        t_load = time.perf_counter() - t0
+        sink2.clear()  # the collector's restored state holds the first half
+        feed2.feed_buffer(xe[half:])
+        wall_e2 = drive(topo2, "[26](e) second half")
+    launches["checkpoint"] = c.read_counts()
+    ckpt.unlink()
+    c.hold_e1_launches("checkpoint", since)
+    topo3, feed3, sink3 = fir_env()
+    feed3.feed_buffer(xe)
+    wall_e3 = drive(topo3, "[26](e) uninterrupted")
+    resumed = np.concatenate([first, sink2.get_buffer()])
+    full = sink3.get_buffer()
+    check(resumed.shape == full.shape,
+          f"[26](e) resumed {resumed.shape}, uninterrupted {full.shape}")
+    errs26["checkpoint_abs"] = float(np.max(np.abs(resumed - full)))
+    print(f"[26](e) feeder -> FIR(13 real taps) -> envelope -> collector on "
+          f"the card, {n} samples: checkpoint taken engaged after {half} "
+          f"({wall_e1:.3f} s), {size} bytes, save {t_save:.3f} s, load into "
+          f"a fresh topology on the card {t_load:.3f} s, second half "
+          f"{wall_e2:.3f} s (uninterrupted run {wall_e3:.3f} s), all on "
+          f"{card}; launches {launches['checkpoint']}; resumed against "
+          f"uninterrupted: max |d| {errs26['checkpoint_abs']:.3e} (limit "
+          f"1e-3)")
+    check(errs26["checkpoint_abs"] <= 1e-3,
+          "[26](e) the resumed stream differs from the uninterrupted run")
+    check(launches["checkpoint"]["cgemm"] >= 1
+          and launches["checkpoint"]["envelope"] >= 1,
+          "[26](e) the checkpointed path did not launch K1 and E1")
+    del topo1, topo2, topo3, sink1, sink2, sink3, first, resumed, full
+
+    # the catalog, where JAX is not installed
+    paths = BlockRegistry.paths()
+    cat = catalog()
+    comms = [p for p in paths if p.startswith("/comms/")]
+    broken = [p for p, d in cat.items() if d.get("type") == "?"]
+    print(f"[26](e) registry {len(paths)} paths; catalog() {len(cat)} "
+          f"entries for the {len(comms)} /comms/ paths, unconstructible "
+          f"{broken}; jax imported: {'jax' in sys.modules}; on {card}")
+    check(len(paths) == 116 and sorted(cat) == comms and not broken
+          and "jax" not in sys.modules,
+          "[26](e) the registry or the catalog is incomplete")
+
+    # K1 against its plain version at each new shape these paths launched
+    for count, args, path in k1_calls.values():
+        c.k1_by_shape.append(c.k1_at(26, *args, path))
+    k1_noted = sum(v[0] for v in k1_calls.values())
+    k1_counted = sum(launches[p]["cgemm"] for p in
+                     ("control_plane_split", "control_plane_trigger",
+                      "checkpoint"))
+    check(k1_noted == k1_counted,
+          f"[26] K1 calls noted ({k1_noted}) and launches counted "
+          f"({k1_counted}) differ")
+    return launches, errs26
 
 
 def main() -> int:
@@ -2581,6 +3106,18 @@ def main() -> int:
               zip(outs25c[str(dev)][:2], outs25c["cpu"][:2])),
           "abs -> modf on the card differs from the CPU")
 
+    # -- 26. the control plane on the card (phase_26) ---------------------
+    from types import SimpleNamespace
+
+    launches26, errs26 = phase_26(SimpleNamespace(
+        dev=dev, card=card, check=check, sync=torch.cuda.synchronize,
+        zero_counts=zero_counts, read_counts=read_counts, watched=watched,
+        k1_at=k1_at, k1_by_shape=k1_by_shape,
+        k1_modules=(cplx_mod, chain_mod, fops, pfft_mod), fops=fops,
+        e1_launched=e1_launched, note_e1=note_e1,
+        hold_e1_launches=hold_e1_launches, event_ms=event_ms,
+        device_ms=device_ms, f4=f4))
+
     by_path = {"chain": launches, "one_pass": launches3,
                "block_api": launches_b, "stream_ceiling": launches_p1,
                "layout": launches_p2, "fm_chain": launches_fm,
@@ -2591,7 +3128,7 @@ def main() -> int:
                "frame_sync_block_api": launches22,
                "wave_chain_block_api": launches23,
                "fm_source_block_api": launches24,
-               "math_fanin_block_api": launches25}
+               "math_fanin_block_api": launches25, **launches26}
     par = "pothoscomms_tpu/parallel/pallas_kernels.py"
     # the bound of each kernel at the shape its ms was taken: bytes of its
     # inputs and outputs, and the float32 operations of its function
@@ -2686,7 +3223,12 @@ def main() -> int:
           f"max|y| (limit 1e-4), its IIR output {iir_err:.3e}, config #3 "
           f"block API {block_err:.3e} (atol 2e-4); wave chain {wave_err:.3e} "
           f"and fan-in {fanin_err:.3e} of max|spectrum| (limit 1e-4); FM "
-          f"source path {fm_src_err:.3e} (atol 2e-3)")
+          f"source path {fm_src_err:.3e} (atol 2e-3); control plane "
+          f"split {errs26['split_re']:.3e} / {errs26['split_im']:.3e} of "
+          f"max|y| (limit 1e-5), fan-in FFT {errs26['fanin_fft_abs']:.3e} "
+          f"(abs, limit 0.01), trigger samples "
+          f"{errs26['trigger_samples_abs']:.3e} (limit 1e-5), checkpoint "
+          f"resume {errs26['checkpoint_abs']:.3e} (atol 1e-3)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

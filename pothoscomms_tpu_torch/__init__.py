@@ -17,12 +17,17 @@ So far it covers:
   slicer, differential coding, scrambler and descrambler, the bitwise
   family, byte order) and the framing blocks (preamble framer, frame
   insert, preamble correlator, frame sync), the 35 math blocks, the
-  waveform and noise sources and the window designer (:mod:`.blocks`),
+  waveform and noise sources, the window designer, the utility blocks
+  (signal probe, threshold, split/combine complex, wave trigger) and the
+  MAC/LLC layer (:mod:`.blocks`: every path of the JAX package's
+  registry),
   the design library (:mod:`.design`) and auto-fusion
   (:mod:`.core.fusion`: label-transparent through the digital and
   elementwise blocks, fan-in heads, multi-output tails, and
   source-headed segments that engage cold), on the device a
-  :class:`Topology` is given;
+  :class:`Topology` is given; stats, checkpoints and the docs catalog
+  (:mod:`.core.introspect`), and the CLI's list, doc and catalog
+  (``python -m pothoscomms_tpu_torch``);
 - :func:`.parallel.compiler.compile_chain` over any of those blocks'
   fused cores;
 - the channel-batched framed digital link (:mod:`.parallel.link`), whose

@@ -11,9 +11,11 @@ ported block factory in the port's own registry: the test fixtures,
 /comms/preamble_framer, /comms/frame_insert, /comms/preamble_correlator
 and /comms/frame_sync; the 35 math blocks (/comms/arithmetic ...
 /comms/modf); the sources /comms/waveform_source and /comms/noise_source;
-and /comms/window_designer (most also under their /blocks/... aliases).
-The rest of the JAX package's catalog (the utility and MAC blocks) is
-still to port (ROADMAP.md Queue 1).
+/comms/window_designer; the utility blocks /comms/signal_probe,
+/comms/threshold, /comms/split_complex, /comms/wave_trigger and
+/comms/combine_complex; and the MAC blocks /comms/simple_mac and
+/comms/simple_llc (most also under their /blocks/... aliases): every path
+of the JAX package's registry.
 """
 
 import pothoscomms_tpu_torch.core.fixtures  # noqa: F401  test fixture blocks
@@ -23,6 +25,8 @@ from pothoscomms_tpu_torch.blocks import digital  # noqa: F401
 from pothoscomms_tpu_torch.blocks import fft  # noqa: F401
 from pothoscomms_tpu_torch.blocks import filter  # noqa: F401
 from pothoscomms_tpu_torch.blocks import framing  # noqa: F401
+from pothoscomms_tpu_torch.blocks import mac  # noqa: F401
 from pothoscomms_tpu_torch.blocks import math  # noqa: F401
 from pothoscomms_tpu_torch.blocks import sources  # noqa: F401
+from pothoscomms_tpu_torch.blocks import utility  # noqa: F401
 from pothoscomms_tpu_torch.blocks import window  # noqa: F401

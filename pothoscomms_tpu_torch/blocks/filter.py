@@ -927,7 +927,7 @@ class FIRDesigner(Block):
     # Docs-plane schema: field parity with the reference's |PothosDoc
     # header (filter/FIRDesigner.cpp:20-137) — labels, option enums,
     # defaults, units, widget and preview rules, for the docs plane
-    # (core/introspect, still to port).
+    # (core/introspect.py).
     DOC = {
         "category": "/Filter",
         "keywords": ["fir", "filter", "taps", "highpass", "lowpass",

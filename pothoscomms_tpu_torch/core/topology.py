@@ -281,6 +281,39 @@ class Topology:
                         max(min(deadlines) - time.monotonic(), 0.0), 0.05
                     ))
 
+    # ------------------------------------------------------------------ #
+    # Observability + checkpointing (core/introspect.py)
+    # ------------------------------------------------------------------ #
+    def query_stats(self) -> dict:
+        """Per-block runtime stats (Pothos queryJSONStats equivalent).
+        Engaged segments stay engaged: reading the counters does not
+        change how the stream runs."""
+        from pothoscomms_tpu_torch.core.introspect import query_stats
+
+        return query_stats(self)
+
+    def save_state(self, path: str) -> None:
+        """Checkpoint all block carry state + queued port data."""
+        from pothoscomms_tpu_torch.core.introspect import save_state
+
+        # fused carries live in the segments, on the topology's device;
+        # fold them back into the blocks' streaming state so the
+        # checkpoint is self-contained host data
+        for seg in self._segments:
+            seg.disengage()
+        save_state(self, path)
+
+    def load_state(self, path: str) -> None:
+        from pothoscomms_tpu_torch.core.introspect import load_state
+
+        # mirror save_state: an engaged segment holds stream state in
+        # device carries; restoring underneath it would leave the stale
+        # carries to be imported on a later disengage, corrupting the
+        # freshly loaded queues
+        for seg in self._segments:
+            seg.disengage()
+        load_state(self, path)
+
     def run_source_elements(self, n: int) -> None:
         """Grant every unbounded source a quota of ~n elements, then run to
         quiescence. This is how tests drive waveform/noise sources, standing

@@ -336,13 +336,15 @@ def test_package_imports_with_jax_blocked():
         "fft, link, profiling\n"
         "from pothoscomms_tpu_torch import native\n"
         "from pothoscomms_tpu_torch.core import (block, dtypes, fixtures,\n"
-        "    fusion, labels, packet, qformat, registry, testing, topology)\n"
+        "    fusion, introspect, labels, packet, qformat, registry, testing,\n"
+        "    topology)\n"
+        "import pothoscomms_tpu_torch.__main__\n"
         "from pothoscomms_tpu_torch.design import (firdes, iirdes, remez,\n"
         "    windows)\n"
         "from pothoscomms_tpu_torch.ops import (bits, cint, digital_device,"
         " elementwise,\n    filter, framing, fxpt, gf2)\n"
         "from pothoscomms_tpu_torch.blocks import (demod, digital, fft, "
-        "filter,\n    framing, math, sources, window)\n"
+        "filter,\n    framing, mac, math, sources, utility, window)\n"
         "assert not [m for m in sys.modules if m.startswith('jax')\n"
         "            and sys.modules[m] is not None]\n"
         "print('ok')\n")

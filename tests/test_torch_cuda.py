@@ -1023,3 +1023,143 @@ def test_source_quota_never_overshot_on_card(dev):
     ref, _, _ = run("cpu", False)
     assert got.shape == ref.shape == (15 * 256,)
     np.testing.assert_allclose(got, ref, rtol=0, atol=2e-4)
+
+
+def test_signal_probe_device_path_matches_host(dev):
+    """SignalProbe over device chunks on the card (a float64 reduction
+    there, the scalar alone to the host) against its host path on the
+    same 2^20 samples, in each mode, real and complex: rel 1e-12."""
+    from pothoscomms_tpu_torch import BlockRegistry, Topology
+    from pothoscomms_tpu_torch.core.fusion import DeviceChunk
+
+    rng = np.random.default_rng(26)
+    n = 1 << 20
+    for dtype in ("float32", "complex_float32"):
+        planar = rng.standard_normal((n, 2) if dtype != "float32" else (n,),
+                                     dtype=np.float32) + np.float32(0.3)
+        for mode in ("VALUE", "RMS", "MEAN"):
+            values = []
+            for on_card in (True, False):
+                probe = BlockRegistry.make("/comms/signal_probe", dtype)
+                Topology(device=dev)._register(probe)
+                probe.set_mode(mode)
+                probe.set_window(n)
+                calls = []
+                device_path = probe._probe_device
+                probe._probe_device = lambda tail: calls.append(
+                    {p.planar.device.type for p in tail}) or device_path(tail)
+                for part in np.array_split(planar, 3):
+                    if on_card:
+                        probe.input(0).push_buffer(DeviceChunk(
+                            torch.from_numpy(part).to(dev), dtype))
+                    else:
+                        probe.input(0).push_buffer(
+                            part.view(np.complex64)[:, 0]
+                            if dtype != "float32" else part)
+                probe.work()
+                assert calls == ([{"cuda"}] if on_card else [])
+                values.append(probe.value())
+            assert values[0] == pytest.approx(values[1], rel=1e-12), (
+                dtype, mode)
+
+
+def test_threshold_core_on_card_past_2_24(dev):
+    """The Threshold core's int64 last-crossing index on a pull longer
+    than 2^24: an activation at 2^24 and a deactivation at 2^24 + 1 (one
+    index in float32, where activation would win the tie) leave the
+    state off, and the reverse order on; both equal the host walk."""
+    from pothoscomms_tpu_torch import BlockRegistry, Topology
+
+    t = (1 << 24) + 4099
+    for act, deact, state in (((1 << 24), (1 << 24) + 1, False),
+                              ((1 << 24) + 1, (1 << 24), True)):
+        x = torch.zeros((2, t), device=dev)
+        x[:, 5] = 1.0  # on early, so the late crossings decide
+        x[:, act] = 1.0
+        x[:, deact] = -1.0
+        th = BlockRegistry.make("/comms/threshold", "float32")
+        Topology(device=dev)._register(th)
+        th.set_activation_level(0.5)
+        th.set_deactivation_level(-0.5)
+        carry, step = th.fuse_export(2)
+        new, y = step(carry, x)
+        assert y is x
+        host = x[0].cpu().numpy()
+        walk = False
+        for i in np.nonzero(np.abs(host) > 0.5)[0]:
+            if not walk and host[i] > 0.5:
+                walk = True
+            elif walk and host[i] < -0.5:
+                walk = False
+        assert walk == state
+        assert new.tolist() == [[float(state)], [float(state)]]
+        th.fuse_import(new)
+        assert th._active_state == state
+
+
+def test_checkpoint_of_engaged_fir_fft_segment_on_card(dev, tmp_path):
+    """save_state / load_state of an engaged FIR -> FFT segment on the
+    card: the checkpoint holds no tensor, and a fresh topology on the card
+    resumed from it continues the spectra within 2e-4 of an
+    uninterrupted run on the card."""
+    import pickle
+
+    from pothoscomms_tpu_torch import BlockRegistry, Topology
+    from pothoscomms_tpu_torch.core.fixtures import (CollectorSink,
+                                                     FeederSource)
+
+    rng = np.random.default_rng(27)
+    taps = (rng.normal(size=64) + 1j * rng.normal(size=64)) / 64
+    n = 63 + (1 << 18)  # the FIR's history, then whole pulls
+    x = (rng.normal(size=2 * n) + 1j * rng.normal(size=2 * n)).astype(
+        np.complex64)
+
+    def build():
+        fir = BlockRegistry.make("/comms/fir_filter", "complex_float32",
+                                 "COMPLEX")
+        fir.set_taps(taps)
+        fft = BlockRegistry.make("/comms/fft", "complex_float32", 1024,
+                                 False)
+        feed = FeederSource("complex_float32")
+        sink = CollectorSink("complex_float32")
+        topo = Topology(device=dev)
+        for a, b in ((feed, fir), (fir, fft), (fft, sink)):
+            topo.connect(a, 0, b, 0)
+        return topo, feed, sink
+
+    topo, feed, sink = build()
+    feed.feed_buffer(x[:n])
+    topo.commit()
+    assert topo.wait_inactive(timeout=120.0)
+    seg = topo._segments[0]
+    assert seg.engaged and seg.pair_engaged
+    path = tmp_path / "card.pkl"
+    topo.save_state(str(path))
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+
+    def tensors(obj):
+        if isinstance(obj, torch.Tensor):
+            return 1
+        if isinstance(obj, dict):
+            return sum(tensors(v) for v in obj.values())
+        if isinstance(obj, (list, tuple, set)):
+            return sum(tensors(v) for v in obj)
+        return 0
+
+    assert tensors(blob) == 0
+    first = sink.get_buffer()
+    topo2, feed2, sink2 = build()
+    topo2.commit()
+    topo2.load_state(str(path))
+    sink2.clear()
+    feed2.feed_buffer(x[n:])
+    assert topo2.wait_inactive(timeout=120.0)
+    resumed = np.concatenate([first, sink2.get_buffer()])
+    topo3, feed3, sink3 = build()
+    feed3.feed_buffer(x)
+    topo3.commit()
+    assert topo3.wait_inactive(timeout=120.0)
+    full = sink3.get_buffer()
+    assert resumed.shape == full.shape
+    np.testing.assert_allclose(resumed, full, rtol=0, atol=2e-4)

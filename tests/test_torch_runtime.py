@@ -123,9 +123,23 @@ def test_registry_make_and_paths():
     assert BlockRegistry.exists("/comms/fft")
     with pytest.raises(KeyError):
         BlockRegistry.make("/comms/nonexistent")
-    # its own registry: the JAX package's other blocks are not in it
-    assert set(BlockRegistry.paths()) < set(jpkg.BlockRegistry.paths())
-    assert not BlockRegistry.exists("/comms/signal_probe")
+    # its own registry, holding every path of the JAX package's
+    assert BlockRegistry.paths() == jpkg.BlockRegistry.paths()
+    assert len(BlockRegistry.paths()) == 116
+    # the probe exists and reads what the JAX package's reads (float64
+    # on the host in both: exact)
+    x = np.random.default_rng(3).normal(size=3000).astype(np.float32)
+    values = []
+    for p, fx in PACKAGES:
+        probe = p.BlockRegistry.make("/comms/signal_probe", "float32")
+        probe.set_mode("RMS")
+        feeder = fx.FeederSource("float32")
+        topo = p.Topology(device="cpu") if p is pkg else p.Topology()
+        topo.connect(feeder, 0, probe, 0)
+        feeder.feed_buffer(x)
+        assert topo.wait_inactive()
+        values.append(probe.value())
+    assert values[0] == values[1] and values[0] > 0.5
 
 
 def test_feed_test_plan_roundtrip_equals_jax():

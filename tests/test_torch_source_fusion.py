@@ -4,8 +4,8 @@ cycle, multi-output tails and fused elementwise hops in the port
 tests/test_fusion_breadth.py:58-235 (the probe-tap case waits for the
 utility blocks), tests/test_soak.py with its bounded queues, and the
 waveform-fed filter cases of tests/test_filter.py:320-346 and :606-616
-(each probe's RMS taken from a collector here; the port has no
-SignalProbe yet).
+(each RMS read from a SignalProbe, as there, the port's against the JAX
+package's within rel 1e-6).
 
 Tolerances are the JAX tests' own, fused against streaming in one
 package (1e-4 or 1e-5 absolute, 2e-2 on spectra); the port against the
@@ -453,13 +453,6 @@ def test_fm_chain_soak_bounded_queues():
 # ------------------------------------------------------------------ #
 # waveform-fed filters (tests/test_filter.py:320-346, :606-616)
 # ------------------------------------------------------------------ #
-def _rms(x):
-    x = np.asarray(x)
-    if x.ndim == 2:  # complex int storage
-        x = x[:, 0].astype(np.float64) + 1j * x[:, 1]
-    return float(np.sqrt(np.mean(np.abs(x) ** 2)))
-
-
 @pytest.mark.parametrize("dtype_name", ["complex_float64", "complex_int16"])
 @pytest.mark.parametrize("decim,interp", [(1, 1), (2, 3), (3, 2)])
 def test_fir_filter_tone_rms(dtype_name, decim, interp):
@@ -488,22 +481,26 @@ def test_fir_filter_tone_rms(dtype_name, decim, interp):
         designer.set_bandwidth_trans(freq + 0.1 * rate)
         designer.set_num_taps(101)
         sink = fx.CollectorSink(dtype_name)
+        probe = p.BlockRegistry.make("/comms/signal_probe", dtype_name)
+        probe.set_mode("RMS")
         topo = p.Topology(device="cpu") if p is pkg else p.Topology()
         topo.connect(designer, "tapsChanged", fir, "setTaps")
         topo.connect(src, 0, release, 0)
         topo.connect(release, 0, fir, 0)
         topo.connect(fir, 0, sink, 0)
+        topo.connect(fir, 0, probe, 0)
         topo.run_source_elements(4096)
-        return sink.get_buffer()
+        return sink.get_buffer(), probe.value()
 
-    got, exp = run("port"), run("jax")
+    (got, rms), (exp, jrms) = run("port"), run("jax")
     assert got.shape == exp.shape and len(got) > 0
     if dtype_name == "complex_int16":
         np.testing.assert_array_equal(got, exp)
     else:
         np.testing.assert_allclose(got, exp, rtol=0,
                                    atol=1e-9 * amplitude)
-    assert _rms(got) > 0.1 * amplitude
+    assert rms > 0.1 * amplitude
+    assert rms == pytest.approx(jrms, rel=1e-6)
 
 
 def test_iir_smoke_with_waveform():
@@ -517,12 +514,16 @@ def test_iir_smoke_with_waveform():
         src.set_sample_rate(1.0)
         iir = p.BlockRegistry.make("/comms/iir_filter", "float64")
         sink = fx.CollectorSink("float64")
+        probe = p.BlockRegistry.make("/comms/signal_probe", "float64")
+        probe.set_mode("RMS")
         topo = p.Topology(device="cpu") if p is pkg else p.Topology()
         topo.connect(src, 0, iir, 0)
         topo.connect(iir, 0, sink, 0)
+        topo.connect(iir, 0, probe, 0)
         topo.run_source_elements(4096)
-        return sink.get_buffer()
+        return sink.get_buffer(), probe.value()
 
-    got, exp = run("port"), run("jax")
+    (got, rms), (exp, jrms) = run("port"), run("jax")
     np.testing.assert_allclose(got, exp, rtol=0, atol=1e-12)
-    assert _rms(got) > 0.5
+    assert rms > 0.5  # sine RMS ~0.707 through the DC-gain-1 lowpass
+    assert rms == pytest.approx(jrms, rel=1e-6)
