@@ -204,7 +204,29 @@ Phases, one or more lines each:
      with save_state while engaged, resumed by load_state in a fresh
      topology on the card, within 1e-3 of an uninterrupted run, and the
      catalog of all 116 paths without JAX. K1 is held against its plain
-     version at every shape these paths launched.
+     version at every shape these paths launched;
+ 27. the scale-out layer on the card (phase_27): a one-rank NCCL process
+     group (parallel/distributed.initialize on a file:// store under
+     build/), make_mesh() with no device on the card, then (a) path
+     "sharded_fir_fft": channel_sharded_fir_fft at C=256, T=131072, K=64,
+     NBINS=1024, two steps, the spectra equal to the unsharded combined
+     step on the same operators bit for bit, K1 within 1e-5 of its plain
+     version, two channels within 1e-4 of a float64 oracle, the carry
+     exact, no collective, timed beside the unsharded step; (b) path
+     "sharded_fir_fft_conv": the same at decim 2 (the conv branch), K2 at
+     [16384, 1024] held to its plain version and the oracle; (c) paths
+     "time_sharded_fir" and "grid_sharded_fir" on make_mesh(1, "t") and
+     make_2d_mesh(1, 1) at [256, 131072], within 1e-4 of fir_multichannel
+     on one device, the carry through an NCCL broadcast, P2P operations
+     (0) and collectives (1) counted; (d) path "time_sharded_resampler"
+     at config #3's 16 channels (3/2, 60 taps, T = 2^19) against the
+     one-device polyphase; (e) path "fm_chain_sharded":
+     compile_chain_sharded on the FM chain at [256, 131072], E1 blocked,
+     equal to compile_chain bit for bit; (f) path "sharded_link":
+     run_sharded_link at 256 channels x 4000-bit frames (noise 0.001),
+     S1 once at [256, 32768], every channel exact, the arrays equal to
+     [21]'s run_link bit for bit and within the float64 oracle's bounds;
+     (g) path "dryrun_multichip": dryrun_multichip(1) on the card.
 Then a JSON line of per-kernel results (with each kernel's bound_ms and
 bound_by, from this run's shapes and the H100's published peaks, and
 library_ms, one PyTorch call computing the same function, or null) and,
@@ -764,6 +786,335 @@ def phase_26(c, n=N26):
           f"[26] K1 calls noted ({k1_noted}) and launches counted "
           f"({k1_counted}) differ")
     return launches, errs26
+
+
+N27 = 131072  # the north-star step's samples a channel (bench.py)
+
+
+def phase_27(c, T=N27, CL=256):
+    """[27] the scale-out layer on the card: one rank, NCCL at world size
+    1, at the north-star width (C=256, K=64, NBINS=1024, ``T`` samples a
+    channel a step).
+
+    ``c`` holds what main() set up: as phase_26's, and ``normal`` and
+    ``on_card`` (the main generator's float32 draws), ``median_ms``,
+    phase 14's ``fm_blocks`` and ``fm_steps``, and [21]'s search arrays
+    as ``link_arrays``. Returns the launch counts of each sub-path and a
+    summary of what it held and timed.
+    """
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from pothoscomms_tpu_torch.kernels.cgemm import cgemm_plain
+    from pothoscomms_tpu_torch.kernels.fft import fft_c2c_plain
+    from pothoscomms_tpu_torch.kernels.sync_search import sync_search
+    from pothoscomms_tpu_torch.core.testing import (search_agreement,
+                                                    sync_search_f64)
+    from pothoscomms_tpu_torch.ops import filter as fops
+    from pothoscomms_tpu_torch.ops import framing as framing_ops
+    from pothoscomms_tpu_torch.parallel import distributed
+    from pothoscomms_tpu_torch.parallel.chain import (
+        combined_fir_fft_operators, combined_operand, complex_fir_kernel,
+        fir_fft_combined_step, fir_multichannel, stack_combined_operators)
+    from pothoscomms_tpu_torch.parallel.compiler import (
+        compile_chain, compile_chain_sharded)
+    from pothoscomms_tpu_torch.parallel.dryrun import dryrun_multichip
+    from pothoscomms_tpu_torch.parallel.link import run_sharded_link
+    from pothoscomms_tpu_torch.parallel.mesh import (
+        channel_sharded_fir_fft, gather, grid_sharded_fir, make_mesh, shard,
+        time_sharded_fir, time_sharded_resampler)
+
+    dev, card, check = c.dev, c.card, c.check
+    rng = np.random.default_rng(27)
+    C, K, NB = 256, 64, 1024
+    launches, summary = {}, {}
+
+    def wall(fn):
+        c.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        c.sync()
+        return out, time.perf_counter() - t0
+
+    def rel(got, ref):
+        return ((got - ref).abs().max() / ref.abs().max()).item()
+
+    def oracle_rel(spec, x_prev, x_cur, ch, decim):
+        """One channel's spectra against float64 numpy: the FIR over the
+        previous step's last K-1 samples and this step's, decimated, then
+        a 1024-point FFT a window; the error over max |spectrum|."""
+        seq = np.concatenate([x_prev[ch, -(K - 1):], x_cur[ch]])
+        seq = seq[:, 0].astype(np.float64) + 1j * seq[:, 1]
+        y = np.convolve(seq, taps)[K - 1: K - 1 + T: decim]
+        exp = np.fft.fft(y.reshape(-1, NB), axis=-1)
+        got = spec[ch].cpu().numpy()
+        return float(np.max(np.abs(got[..., 0] + 1j * got[..., 1] - exp))
+                     / np.max(np.abs(exp)))
+
+    store_dir = tempfile.mkdtemp(prefix="nccl_store_",
+                                 dir=Path(__file__).resolve().parent / "build")
+    try:
+        t0 = time.perf_counter()
+        rank_dev = distributed.initialize(f"file://{store_dir}/store",
+                                          world_size=1, rank=0)
+        mesh = make_mesh()  # no device: the card of this rank, over NCCL
+        wall_init = time.perf_counter() - t0
+        print(f"[27] process group: {dist.get_backend()} at world size "
+              f"{dist.get_world_size()}, rank device {rank_dev}, make_mesh() "
+              f"with no device on {mesh.device}, shape {mesh.shape}; "
+              f"initialize and make_mesh {wall_init:.3f} s")
+        check(dist.get_backend() == "nccl" and mesh.device == dev
+              and rank_dev == dev, "[27] the mesh is not on the card over NCCL")
+
+        # -- (a) channel_sharded_fir_fft, the combined step (K1) ---------
+        taps = (rng.normal(size=K) + 1j * rng.normal(size=K)) / K
+        run_a, init_a = channel_sharded_fir_fft(mesh, taps, NB)
+        gr, gi = (g.to(dev) for g in stack_combined_operators(
+            *combined_fir_fft_operators(taps, NB, 128)))
+        xh = [c.normal(C, T, 2) for _ in range(2)]
+        xs = [shard(x, mesh, ("ch",)) for x in xh]
+        h0 = init_a(C)
+        c.sync()
+        mesh.p2p_ops = mesh.collectives = 0
+        c.zero_counts()
+
+        def drive_a():
+            hs, out = [h0], []
+            for x in xs:
+                spec, h = run_a(x, hs[-1])
+                out.append(spec)
+                hs.append(h)
+            return out, hs
+
+        (specs, hs), wall_a = wall(drive_a)
+        launches["sharded_fir_fft"] = c.read_counts()
+        coll_a = (mesh.p2p_ops, mesh.collectives)
+        errs_a = []
+        h_ref = torch.zeros_like(h0)
+        for s, x in enumerate(xs):
+            ref, h_ref = fir_fft_combined_step(x, h_ref, gr, gi, NB, K, 128)
+            same = torch.equal(specs[s], ref)
+            plain = cgemm_plain(combined_operand(x, hs[s], NB, K, 128), gr,
+                                gi).reshape(specs[s].shape)
+            r_plain = rel(specs[s], plain)
+            exact = torch.equal(hs[s + 1], x[:, T - (K - 1):])
+            errs_a.append(r_plain)
+            print(f"[27](a) step {s}: spectra {tuple(specs[s].shape)} equal "
+                  f"to the unsharded combined step bit for bit {same}; K1 "
+                  f"/max|plain| {r_plain:.3e} (limit 1e-5); carry the last "
+                  f"K-1 inputs {exact}")
+            check(same and r_plain < 1e-5 and exact
+                  and bool(torch.isfinite(specs[s]).all()),
+                  f"[27](a) step {s} disagrees with the unsharded step, "
+                  f"K1's plain version or the carry contract")
+        ora = [oracle_rel(specs[1], xh[0], xh[1], ch, 1) for ch in (0, C - 1)]
+        ms_a = c.median_ms(lambda: run_a(xs[0], h0))
+        ms_a1 = c.median_ms(lambda: fir_fft_combined_step(xs[0], h0, gr, gi,
+                                                          NB, K, 128))
+        print(f"[27](a) channel_sharded_fir_fft C={C} T={T} K={K} NBINS={NB}"
+              f" on {card}: 2 steps {wall_a:.4f} s; a step {ms_a:.3f} ms "
+              f"sharded, {ms_a1:.3f} ms unsharded ({C * T / ms_a / 1e3:.1f} "
+              f"Msamples/s); float64 oracle, channels 0 and {C - 1} of step "
+              f"1: /max|spectrum| {max(ora):.3e} (limit 1e-4); P2P "
+              f"{coll_a[0]}, collectives {coll_a[1]}; launches "
+              f"{launches['sharded_fir_fft']}")
+        check(max(ora) < 1e-4, "[27](a) disagrees with the float64 oracle")
+        check(launches["sharded_fir_fft"]["cgemm"] == 2 and coll_a == (0, 0),
+              "[27](a) did not launch K1 once a step, or communicated")
+        summary["a"] = {"init_s": wall_init, "oracle_rel": max(ora), "k1_rel_plain": max(errs_a),
+                        "step_ms": ms_a, "unsharded_ms": ms_a1}
+        del specs, hs, h_ref, ref, plain
+
+        # -- (b) the conv branch (decim 2): conv FIR, then K2 ------------
+        run_b, init_b = channel_sharded_fir_fft(mesh, taps, NB, decim=2)
+        kern = complex_fir_kernel(taps).to(dev)
+        c.zero_counts()
+
+        def drive_b():
+            _, h = run_b(xs[0], init_b(C))
+            return run_b(xs[1], h)[0], h
+
+        (spec_b1, h_b), wall_b = wall(drive_b)
+        launches["sharded_fir_fft_conv"] = c.read_counts()
+        y_b, _ = fir_multichannel(xs[1], h_b, kern, 2)
+        frames_b = y_b.reshape(-1, NB, 2)
+        r_b = rel(spec_b1.reshape(-1, NB, 2), fft_c2c_plain(frames_b))
+        ora_b = max(oracle_rel(spec_b1, xh[0], xh[1], ch, 2)
+                    for ch in (0, C - 1))
+        ms_b = c.median_ms(lambda: run_b(xs[0], h0))
+        print(f"[27](b) channel_sharded_fir_fft decim=2 (the conv branch) on "
+              f"{card}: spectra {tuple(spec_b1.shape)}, K2 at "
+              f"{list(frames_b.shape[:2])}: /max|plain| {r_b:.3e} (limit "
+              f"1e-5); float64 oracle /max|spectrum| {ora_b:.3e} (limit "
+              f"1e-4); 2 steps {wall_b:.4f} s, a step {ms_b:.3f} ms; "
+              f"launches {launches['sharded_fir_fft_conv']}")
+        check(r_b < 1e-5 and ora_b < 1e-4,
+              "[27](b) disagrees with K2's plain version or the oracle")
+        check(launches["sharded_fir_fft_conv"]["fft_c2c"] == 2,
+              "[27](b) did not launch K2 once a step")
+        summary["b"] = {"oracle_rel": ora_b, "k2_rel_plain": r_b,
+                        "step_ms": ms_b}
+        del spec_b1, y_b, frames_b
+
+        # -- (c) time_sharded_fir and grid_sharded_fir -------------------
+        x_c = xs[0]
+        carry_c = c.on_card(c.normal(C, K - 1, 2))
+        ref_c, tail_c = fir_multichannel(x_c, carry_c, kern)
+        ms_c1 = c.median_ms(lambda: fir_multichannel(x_c, carry_c, kern))
+        summary["c"] = {}
+        for name, m, fn in (
+                ("time_sharded_fir", make_mesh(1, "t"), time_sharded_fir),
+                ("grid_sharded_fir", distributed.make_2d_mesh(1, 1),
+                 grid_sharded_fir)):
+            run_c = fn(m, taps)
+            c.zero_counts()
+            (y_c, carry2), wall_c = wall(lambda: run_c(x_c, carry_c))
+            launches[name] = c.read_counts()
+            counts = (m.p2p_ops, m.collectives)
+            d_c = (y_c - ref_c).abs().max().item()
+            same = torch.equal(y_c, ref_c)
+            ms_c = c.median_ms(lambda: run_c(x_c, carry_c))
+            print(f"[27](c) {name} on mesh {m.shape}, [{C},{T},2] K={K} on "
+                  f"{card}: max|d| from fir_multichannel on one device "
+                  f"{d_c:.3e} (atol 1e-4; bit for bit {same}); carry through "
+                  f"an NCCL broadcast equal to the last K-1 inputs "
+                  f"{torch.equal(carry2, tail_c)}; P2P operations "
+                  f"{counts[0]}, collectives {counts[1]}; {wall_c:.4f} s "
+                  f"first call, {ms_c:.3f} ms a step against "
+                  f"{ms_c1:.3f} ms unsharded")
+            check(d_c <= 1e-4 and torch.equal(carry2, tail_c)
+                  and counts == (0, 1), f"[27](c) {name} disagrees with one "
+                  f"device, or sent, or skipped the carry's broadcast")
+            summary["c"][name] = {"max_abs": d_c, "p2p": counts[0],
+                                  "collectives": counts[1], "ms": ms_c,
+                                  "unsharded_ms": ms_c1}
+        del y_c, ref_c, tail_c, carry2
+
+        # -- (d) time_sharded_resampler at config #3's 16 channels -------
+        M, L, CR = 2, 3, 16
+        TR = M * round((1 << 19) / M)  # the multiple of M nearest 2^19
+        taps_r = (rng.normal(size=60) + 1j * rng.normal(size=60)) / 60
+        phases, KR = fops._polyphase_matrix(taps_r, L)
+        tq = c.on_card(np.stack([phases.real, phases.imag], -1))
+        x_d = c.on_card(c.normal(CR, TR, 2))
+        carry_d = c.on_card(c.normal(CR, KR - 1, 2))
+        run_d = time_sharded_resampler(make_mesh(1, "t"), taps_r, M, L)
+        c.zero_counts()
+        (y_d, carry_d2), wall_d = wall(lambda: run_d(x_d, carry_d))
+        launches["time_sharded_resampler"] = c.read_counts()
+        xd_h = torch.cat([carry_d, x_d], dim=1)
+        ref_d = torch.stack([fops.polyphase_fir(s, tq, M, L, KR, "planar", 0)
+                             for s in xd_h])
+        ms_d = c.median_ms(lambda: run_d(x_d, carry_d))
+        d_d = (y_d - ref_d).abs().max().item()
+        r_d = d_d / ref_d.abs().max().item()
+        print(f"[27](d) time_sharded_resampler {L}/{M}, 60 taps, [{CR},{TR},"
+              f"2] -> {list(y_d.shape)} on {card}: against the one-device "
+              f"polyphase max|d| {d_d:.3e}, /max|y| {r_d:.3e} (limit 1e-4; "
+              f"bit for bit {torch.equal(y_d, ref_d)}); carry exact "
+              f"{torch.equal(carry_d2, x_d[:, TR - (KR - 1):])}; "
+              f"first call {wall_d:.4f} s, a step {ms_d:.3f} ms "
+              f"({CR * TR / ms_d / 1e3:.1f} Msamples/s in)")
+        check(r_d < 1e-4 and torch.equal(carry_d2, x_d[:, TR - (KR - 1):]),
+              "[27](d) the resampler disagrees with one device")
+        summary["d"] = {"rel": r_d, "first_call_s": wall_d, "step_ms": ms_d}
+        del x_d, y_d, ref_d, xd_h
+
+        # -- (e) compile_chain_sharded on the FM chain (E1) --------------
+        xf = c.fm_steps(C, T, 2, 27)
+        step_s, carry_s = compile_chain_sharded(c.fm_blocks(64, 2, 10.0, 40.0),
+                                                C, mesh)
+        step_1, carry_1 = compile_chain(c.fm_blocks(64, 2, 10.0, 40.0), C,
+                                        device=dev)
+        since = len(c.e1_launched)
+        c.zero_counts()
+        with c.watched(fops, "envelope_rows", c.note_e1):
+            ys_e, wall_e = wall(lambda: _fm_run(step_s, carry_s, xf))
+        launches["fm_chain_sharded"] = c.read_counts()
+        c.hold_e1_launches("fm_chain_sharded", since)
+        ys_1 = _fm_run(step_1, carry_1, xf)
+        same_e = all(torch.equal(a, b) for a, b in zip(ys_e, ys_1))
+        ms_e = c.median_ms(lambda: step_s(xf[0], carry_s))
+        print(f"[27](e) compile_chain_sharded FM (freq_demod, dc_removal(64, "
+              f"2), envelope(10, 40)) at [{C},{T}] on {card}: 2 steps "
+              f"{wall_e:.4f} s, a step {ms_e:.3f} ms; equal to compile_chain "
+              f"bit for bit {same_e}; launches "
+              f"{launches['fm_chain_sharded']}")
+        check(same_e and launches["fm_chain_sharded"]["envelope"] == 2,
+              "[27](e) the sharded FM chain differs from compile_chain or "
+              "did not launch E1 once a step")
+        summary["e"] = {"bit_for_bit": same_e, "step_ms": ms_e}
+        del xf, ys_e, ys_1
+
+        # -- (f) run_sharded_link at 256 channels x 4000-bit frames (S1) -
+        shapes_f = []
+        c.zero_counts()
+        with c.watched(framing_ops, "sync_search",
+                       lambda args, out: shapes_f.append(
+                           tuple(args[0].shape))):
+            res_f, wall_f = wall(lambda: run_sharded_link(mesh, CL, 4000,
+                                                          seed=21,
+                                                          noise=0.001))
+        launches["sharded_link"] = c.read_counts()
+        same_f = all(np.array_equal(a, b) for a, b in
+                     zip(res_f["arrays"], c.link_arrays))
+        chans = [0, 1, 37, 96, 128, 200, 254, 255]
+        n_f = res_f["n_pad"]
+        agree = search_agreement(
+            [a[chans] for a in res_f["arrays"]],
+            sync_search_f64(res_f["x"][chans].cpu().numpy(), [1.0], 0.01,
+                            80, 80, 4, 1, n_f))
+        sec = res_f["seconds"]
+        print(f"[27](f) run_sharded_link {CL} channels x 4000-bit frames "
+              f"(noise 0.001) on {card}: {sum(res_f['bit_exact'])} of {CL} "
+              f"exact, devices {res_f['devices']}; S1 at {shapes_f}; arrays "
+              f"equal to [21]'s run_link bit for bit {same_f}; against the "
+              f"float64 oracle on channels {chans}: {agree}; wall "
+              f"{wall_f:.3f} s (TX {sec['tx']:.3f}, upload "
+              f"{sec['upload']:.3f}, search {sec['search'] * 1e3:.3f} ms, "
+              f"RX decode {sec['rx_decode']:.3f}); launches "
+              f"{launches['sharded_link']}")
+        check(res_f["all_exact"] and res_f["devices"] == 1 and same_f,
+              "[27](f) the sharded link is not exact or differs from run_link")
+        check(agree["scale_zero_mismatch"] == 0 and agree["peak_mismatch"]
+              == 0 and agree["scale_rel"] <= 1e-5 and agree["delta_fc_abs"]
+              <= 1e-5 and agree["phase_abs"] <= 2e-3,
+              "[27](f) S1 disagrees with the float64 oracle")
+        check(launches["sharded_link"]["sync_search"] == 1
+              and shapes_f == [(CL, res_f["lp"], 2)],
+              "[27](f) did not launch S1 once for the rank's channels")
+        summary["f"] = {"exact": sum(res_f["bit_exact"]), "wall_s": wall_f,
+                        **sec}
+        del res_f
+
+        # -- (g) dryrun_multichip(1) on the card --------------------------
+        since = len(c.e1_launched)
+        c.zero_counts()
+        with c.watched(fops, "envelope_rows", c.note_e1):
+            dr, wall_g = wall(lambda: dryrun_multichip(1))
+        launches["dryrun_multichip"] = c.read_counts()
+        c.hold_e1_launches("dryrun_multichip", since)
+        print(f"[27](g) dryrun_multichip(1) on {card}: {dr}, {wall_g:.3f} s; "
+              f"launches {launches['dryrun_multichip']}")
+        check(dr["channel_fir_fft"][1] < 1e-4 and dr["time_fir"][1] <= 1e-4,
+              "[27](g) the dry run disagrees with one device")
+        summary["g"] = dr
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return launches, summary
+
+
+def _fm_run(step, carry, xs):
+    ys = []
+    for x in xs:
+        y, carry = step(x, carry)
+        ys.append(y)
+    return ys
 
 
 def main() -> int:
@@ -2495,6 +2846,7 @@ def main() -> int:
         "plan": card_plan(CL, n21, 80), "ms": s1_ms,
         "device_ms": s1_device_ms, "bound_ms": s1_bound[0],
         "bound_by": s1_bound[1]}}
+    arrays21 = res21["arrays"]  # held against the sharded link in [27]
     del got21, plain21, res21, x21
 
     # -- 22. path "frame_sync_block_api": FrameSync and the loopback ------
@@ -3118,6 +3470,17 @@ def main() -> int:
         hold_e1_launches=hold_e1_launches, event_ms=event_ms,
         device_ms=device_ms, f4=f4))
 
+    # -- 27. the scale-out layer on the card (phase_27) -------------------
+    launches27, summary27 = phase_27(SimpleNamespace(
+        dev=dev, card=card, check=check, sync=torch.cuda.synchronize,
+        zero_counts=zero_counts, read_counts=read_counts, watched=watched,
+        e1_launched=e1_launched, note_e1=note_e1,
+        hold_e1_launches=hold_e1_launches, median_ms=median_ms,
+        normal=normal, on_card=on_card, fm_blocks=fm_blocks,
+        fm_steps=fm_steps, link_arrays=arrays21))
+    del arrays21
+    print(f"[27] summary on {card}: {json.dumps(summary27)}")
+
     by_path = {"chain": launches, "one_pass": launches3,
                "block_api": launches_b, "stream_ceiling": launches_p1,
                "layout": launches_p2, "fm_chain": launches_fm,
@@ -3128,7 +3491,8 @@ def main() -> int:
                "frame_sync_block_api": launches22,
                "wave_chain_block_api": launches23,
                "fm_source_block_api": launches24,
-               "math_fanin_block_api": launches25, **launches26}
+               "math_fanin_block_api": launches25, **launches26,
+               **launches27}
     par = "pothoscomms_tpu/parallel/pallas_kernels.py"
     # the bound of each kernel at the shape its ms was taken: bytes of its
     # inputs and outputs, and the float32 operations of its function

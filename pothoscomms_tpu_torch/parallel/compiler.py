@@ -21,9 +21,8 @@ inside it. Carries are tuples (one entry per block).
 
 Every ``device_core`` of the port composes here: the FIR (1:1 and
 rational), the IIR filter, the FFT, the FM discriminator, DC removal and
-the envelope follower. Not ported yet: ``compile_chain_sharded`` (channel
-sharding across cards, with ``torch.distributed``; ROADMAP Queue 1 item
-10).
+the envelope follower. :func:`compile_chain_sharded` runs the same step on
+one rank's channel shard of a ``parallel/mesh.Mesh``.
 """
 
 from __future__ import annotations
@@ -66,6 +65,24 @@ def compile_chain(blocks: Sequence[Any], channels: int, device=None):
         return x, tuple(new_carries)
 
     return chain_step, tuple(carries)
+
+
+def compile_chain_sharded(blocks: Sequence[Any], channels: int, mesh,
+                          axis: str = "ch"):
+    """compile_chain with the [C, T(, 2)] block channel-sharded over the
+    mesh axis ``axis`` (BASELINE config #4: "256 channels sharded").
+
+    Each rank runs ``compile_chain(blocks, C // n)`` on its own [C/n,
+    T(, 2)] shard, on the mesh's device and with its own carry: channel
+    parallelism needs no collective. Each process builds its own blocks.
+    Returns (step, carry0) like compile_chain; the step takes and returns
+    the rank's shard (``parallel/mesh.shard`` and ``gather`` go between
+    global and local).
+    """
+    n = mesh.axis_size(axis)
+    if channels % n:
+        raise ValueError(f"{channels} channels do not split into {n} shards")
+    return compile_chain(blocks, channels // n, device=mesh.device)
 
 
 def chain_carry_from_numpy(carry, device=None):

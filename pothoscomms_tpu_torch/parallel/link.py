@@ -11,9 +11,10 @@ reference's hottest loop (digital/FrameSync.cpp:470-497) — runs as ONE
 launch of S1 (``kernels/sync_search.py``) over all channels of the batch.
 The small per-channel acceptance automaton and Hamming header decode stay
 on the host (blocks/framing.py, the code the FrameSync block runs); then
-SymbolSlicer and Descrambler blocks recover the payload bits. (The JAX
-package shards the search over a device mesh's "ch" axis; sharding over
-several cards is still to port.)
+SymbolSlicer and Descrambler blocks recover the payload bits.
+:func:`run_sharded_link` splits the channels over the ranks of a
+``parallel/mesh.Mesh``, as the JAX package shards its search over a
+device mesh's "ch" axis.
 
 Bit-exactness note: with rectangular pulses the reference's optimal
 bit-sampling search can settle one symbol late (FrameSync.cpp:709-721),
@@ -231,29 +232,71 @@ def align_payload(rx_bits: np.ndarray, n_bits: int, *, poly: int = 0x19,
     return None
 
 
+def channel_wave(c: int, bits: np.ndarray, seed: int, noise: float,
+                 device=None) -> np.ndarray:
+    """Channel c's wave: the TX frame of ``bits`` after the link's channel
+    schedule for channel c (gaps, attenuation, phase, frequency offset,
+    AWGN from ``seed + 100 + c``), as the JAX package's
+    ``run_sharded_link`` draws it."""
+    wave = tx_waveform(bits, symbol_width=20, data_width=4, device=device)
+    return apply_channel(
+        wave,
+        gap_pre=300 + 40 * c,
+        gap_post=500 - 40 * (c % 8),
+        attenuation=0.4 + 0.05 * (c % 8),
+        phase=0.3 * c,
+        freq_offset=1e-4 * ((c % 5) - 2),
+        noise=noise,
+        rng=np.random.default_rng(seed + 100 + c),
+    )
+
+
+def channel_bits(n_channels: int, n_bits: int, seed: int):
+    """Every channel's payload bits, drawn in channel order from one
+    generator seeded with ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 2, n_bits).astype(np.uint8)
+            for _ in range(n_channels)]
+
+
 def channel_waves(n_channels: int, n_bits: int, seed: int, noise: float,
                   device=None):
     """The TX side of :func:`run_link`: each channel's bits and its wave
-    after ``run_sharded_link``'s per-channel channel schedule (gaps,
-    attenuation, phase, frequency offset, AWGN)."""
-    rng = np.random.default_rng(seed)
-    tx_bits = [rng.integers(0, 2, n_bits).astype(np.uint8)
-               for _ in range(n_channels)]
-    waves = []
-    for c in range(n_channels):
-        wave = tx_waveform(tx_bits[c], symbol_width=20, data_width=4,
-                           device=device)
-        waves.append(apply_channel(
-            wave,
-            gap_pre=300 + 40 * c,
-            gap_post=500 - 40 * (c % 8),
-            attenuation=0.4 + 0.05 * (c % 8),
-            phase=0.3 * c,
-            freq_offset=1e-4 * ((c % 5) - 2),
-            noise=noise,
-            rng=np.random.default_rng(seed + 100 + c),
-        ))
-    return tx_bits, waves
+    (:func:`channel_wave`)."""
+    tx_bits = channel_bits(n_channels, n_bits, seed)
+    return tx_bits, [channel_wave(c, tx_bits[c], seed, noise, device)
+                     for c in range(n_channels)]
+
+
+def _receive(waves, tx_bits, search, lp: int, n_pad: int, n_bits: int,
+             dev: torch.device):
+    """The RX side of a link: pad the waves into one [C, lp, 2] batch on
+    ``dev``, search it (one S1 launch), decode each channel on the host.
+    Returns (per-channel exactness, the batch, the search arrays as numpy,
+    the seconds of each stage)."""
+    t0 = time.perf_counter()
+    x = np.zeros((len(waves), lp, 2), np.float32)
+    for c, wv in enumerate(waves):
+        x[c, : len(wv), 0] = wv.real
+        x[c, : len(wv), 1] = wv.imag
+    xd = torch.from_numpy(x).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    arrays = [a.cpu().numpy() for a in search(xd)]
+    t2 = time.perf_counter()
+    scale, dfc, pho, peak = arrays
+    peak = peak.astype(np.int64)
+    ok = []
+    for c, wv in enumerate(waves):
+        n_off = len(wv) - (lp - n_pad)  # valid offsets for channel c
+        rec = rx_decode(wv, (scale[c][:n_off], dfc[c][:n_off],
+                             pho[c][:n_off], peak[c][:n_off]),
+                        n_bits, symbol_width=20, data_width=4, device=dev)
+        ok.append(rec is not None and np.array_equal(rec, tx_bits[c]))
+    t3 = time.perf_counter()
+    return ok, xd, (scale, dfc, pho, peak), {
+        "upload": t1 - t0, "search": t2 - t1, "rx_decode": t3 - t2}
 
 
 def run_link(n_channels: int, n_bits: int = 64, seed: int = 7,
@@ -269,26 +312,8 @@ def run_link(n_channels: int, n_bits: int = 64, seed: int = 7,
     length = max(len(w) for w in waves)
     search, lp, n_pad = make_channel_search([1.0], 20, 4, 0.01, length,
                                             device=dev)
-    x = np.zeros((n_channels, lp, 2), np.float32)
-    for c, wv in enumerate(waves):
-        x[c, : len(wv), 0] = wv.real
-        x[c, : len(wv), 1] = wv.imag
-    xd = torch.from_numpy(x).to(dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t2 = time.perf_counter()
-    arrays = [a.cpu().numpy() for a in search(xd)]
-    t3 = time.perf_counter()
-    scale, dfc, pho, peak = arrays
-    peak = peak.astype(np.int64)
-    ok = []
-    for c in range(n_channels):
-        n_off = len(waves[c]) - (lp - n_pad)  # valid offsets for channel c
-        rec = rx_decode(waves[c], (scale[c][:n_off], dfc[c][:n_off],
-                                   pho[c][:n_off], peak[c][:n_off]),
-                        n_bits, symbol_width=20, data_width=4, device=dev)
-        ok.append(rec is not None and np.array_equal(rec, tx_bits[c]))
-    t4 = time.perf_counter()
+    ok, xd, arrays, seconds = _receive(waves, tx_bits, search, lp, n_pad,
+                                       n_bits, dev)
     return {
         "channels": n_channels,
         "bit_exact": ok,
@@ -296,7 +321,61 @@ def run_link(n_channels: int, n_bits: int = 64, seed: int = 7,
         "lp": lp,
         "n_pad": n_pad,
         "x": xd,
-        "arrays": (scale, dfc, pho, peak),
-        "seconds": {"tx": t1 - t0, "upload": t2 - t1, "search": t3 - t2,
-                    "rx_decode": t4 - t3},
+        "arrays": arrays,
+        "seconds": {"tx": t1 - t0, **seconds},
+    }
+
+
+def make_sharded_search(mesh, preamble, symbol_width: int, data_width: int,
+                        input_threshold: float, length: int):
+    """Build the channel-sharded search on this rank of ``mesh``.
+
+    Returns (search, lp, n_pad): search(x [C/n, lp, 2]) -> 4 tensors
+    [C/n, n_pad] on the rank's device, one S1 launch for the rank's
+    channels (the mesh's "ch" axis splits C). ``length`` is the longest
+    wave over every rank's channels, so every rank pads alike; lp =
+    bucket_len of it (pad inputs with zeros)."""
+    return make_channel_search(preamble, symbol_width, data_width,
+                               input_threshold, length, device=mesh.device)
+
+
+def run_sharded_link(mesh, n_channels: int, n_bits: int = 64, seed: int = 7,
+                     noise: float = 0.0) -> dict:
+    """End-to-end link over ``n_channels`` independent channels with the
+    search sharded over the mesh's "ch" axis: this rank sends, searches
+    and decodes its own contiguous block of C/n channels, drawn as the
+    JAX package draws them (one generator for every channel's bits, in
+    order; ``seed + 100 + c`` for channel c's noise), and pads to the
+    longest wave of any rank.
+
+    Every rank returns the JAX package's result dict (``channels``,
+    ``bit_exact`` for every channel, gathered from every rank,
+    ``all_exact``, ``devices``, the mesh's size), and beside it this
+    rank's ``lp``, ``n_pad``, search input ``x``, search ``arrays`` and
+    the ``seconds`` of each stage."""
+    dev = mesh.device
+    n, i = mesh.axis_size("ch"), mesh.axis_index("ch")
+    if n_channels % n:
+        raise ValueError(f"{n_channels} channels do not split into {n}")
+    per = n_channels // n
+    t0 = time.perf_counter()
+    tx_bits = channel_bits(n_channels, n_bits, seed)[i * per:(i + 1) * per]
+    waves = [channel_wave(i * per + c, bits, seed, noise, dev)
+             for c, bits in enumerate(tx_bits)]
+    t1 = time.perf_counter()
+    length = mesh.all_reduce_max(max(len(w) for w in waves), "ch")
+    search, lp, n_pad = make_sharded_search(mesh, [1.0], 20, 4, 0.01, length)
+    ok, xd, arrays, seconds = _receive(waves, tx_bits, search, lp, n_pad,
+                                       n_bits, dev)
+    ok = [v for part in mesh.all_gather_object(ok, "ch") for v in part]
+    return {
+        "channels": n_channels,
+        "bit_exact": ok,
+        "all_exact": all(ok),
+        "devices": mesh.size,
+        "lp": lp,
+        "n_pad": n_pad,
+        "x": xd,
+        "arrays": arrays,
+        "seconds": {"tx": t1 - t0, **seconds},
     }

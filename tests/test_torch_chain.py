@@ -332,8 +332,8 @@ def test_package_imports_with_jax_blocked():
         "from pothoscomms_tpu_torch.kernels import (build, cgemm, fft,\n"
         "    fir_fft_fused, envelope, layout_move, stream_scale,\n"
         "    sync_search)\n"
-        "from pothoscomms_tpu_torch.parallel import chain, compiler, cplx, "
-        "fft, link, profiling\n"
+        "from pothoscomms_tpu_torch.parallel import (chain, compiler, cplx,\n"
+        "    distributed, dryrun, fft, link, mesh, profiling)\n"
         "from pothoscomms_tpu_torch import native\n"
         "from pothoscomms_tpu_torch.core import (block, dtypes, fixtures,\n"
         "    fusion, introspect, labels, packet, qformat, registry, testing,\n"

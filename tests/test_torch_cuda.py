@@ -1163,3 +1163,168 @@ def test_checkpoint_of_engaged_fir_fft_segment_on_card(dev, tmp_path):
     full = sink3.get_buffer()
     assert resumed.shape == full.shape
     np.testing.assert_allclose(resumed, full, rtol=0, atol=2e-4)
+
+
+# ------------------------------------------------------------------ #
+# the scale-out layer at world size 1 under NCCL
+# ------------------------------------------------------------------ #
+@pytest.fixture(scope="module")
+def nccl(tmp_path_factory):
+    """A one-rank NCCL process group on the card (a file:// store), for
+    the module; the mesh functions then run their collectives through
+    NCCL."""
+    import torch.distributed as dist
+
+    from pothoscomms_tpu_torch.parallel import distributed
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dev = distributed.initialize(f"file://{store}", world_size=1, rank=0)
+    yield dev
+    dist.destroy_process_group()
+
+
+def test_nccl_mesh_defaults_to_the_card(nccl):
+    import torch.distributed as dist
+
+    from pothoscomms_tpu_torch.parallel.mesh import make_mesh
+
+    assert dist.get_backend() == "nccl" and nccl.type == "cuda"
+    mesh = make_mesh()
+    assert mesh.device == nccl and mesh.shape == {"ch": 1}
+    with pytest.raises(ValueError, match="gloo"):
+        make_mesh(device="cpu")
+
+
+def test_nccl_channel_sharded_fir_fft_equals_unsharded(nccl):
+    """The combined branch on one rank equals the unsharded combined step
+    on the same operators bit for bit (same K1 launch, same operand),
+    over two steps; the carry is the last K-1 inputs."""
+    from pothoscomms_tpu_torch.parallel.chain import fir_fft_combined_step
+    from pothoscomms_tpu_torch.parallel.mesh import (channel_sharded_fir_fft,
+                                                     make_mesh)
+
+    rng = np.random.default_rng(12)
+    C, T, K, NB = 8, 8192, 64, 1024
+    taps = (rng.normal(size=K) + 1j * rng.normal(size=K)) / K
+    mesh = make_mesh(1)
+    run, init = channel_sharded_fir_fft(mesh, taps, NB)
+    gr, gi = (g.to(nccl) for g in stack_combined_operators(
+        *combined_fir_fft_operators(taps, NB, 128)))
+    h, h_ref = init(C), torch.zeros(C, K - 1, 2, device=nccl)
+    for _ in range(2):
+        x = _normal(rng, C, T, 2).to(nccl)
+        before = cgemm.launches
+        spec, h = run(x, h)
+        assert cgemm.launches == before + 1
+        ref, h_ref = fir_fft_combined_step(x, h_ref, gr, gi, NB, K, 128)
+        assert torch.equal(spec, ref)
+        assert torch.equal(h, x[:, T - (K - 1):])
+    assert (mesh.p2p_ops, mesh.collectives) == (0, 0)
+
+
+def test_nccl_time_and_grid_sharded_fir_equal_one_device(nccl):
+    """time_sharded_fir and grid_sharded_fir on one rank: the conv FIR of
+    one device within 1e-4; no send, one NCCL broadcast of the carry a
+    step."""
+    from pothoscomms_tpu_torch.parallel.chain import (complex_fir_kernel,
+                                                      fir_multichannel)
+    from pothoscomms_tpu_torch.parallel.distributed import make_2d_mesh
+    from pothoscomms_tpu_torch.parallel.mesh import (grid_sharded_fir,
+                                                     make_mesh,
+                                                     time_sharded_fir)
+
+    rng = np.random.default_rng(13)
+    C, T, K = 4, 4096, 64
+    taps = (rng.normal(size=K) + 1j * rng.normal(size=K)) / K
+    kern = complex_fir_kernel(taps).to(nccl)
+    x = _normal(rng, C, T, 2).to(nccl)
+    carry = _normal(rng, C, K - 1, 2).to(nccl)
+    ref, tail = fir_multichannel(x, carry, kern)
+    for mesh, fn in ((make_mesh(1, "t"), time_sharded_fir),
+                     (make_2d_mesh(1, 1), grid_sharded_fir)):
+        y, c2 = fn(mesh, taps)(x, carry)
+        assert (y - ref).abs().max().item() <= 1e-4
+        assert torch.equal(c2, tail)
+        assert (mesh.p2p_ops, mesh.collectives) == (0, 1)
+
+
+def test_nccl_time_sharded_resampler_equals_one_device(nccl):
+    from pothoscomms_tpu_torch.ops.filter import (_polyphase_matrix,
+                                                  polyphase_fir)
+    from pothoscomms_tpu_torch.parallel.mesh import (make_mesh,
+                                                     time_sharded_resampler)
+
+    rng = np.random.default_rng(14)
+    M, L, C, T = 2, 3, 4, 6000
+    taps = (rng.normal(size=60) + 1j * rng.normal(size=60)) / 60
+    phases, K = _polyphase_matrix(taps, L)
+    tq = torch.from_numpy(np.stack([phases.real, phases.imag], -1).astype(
+        np.float32)).to(nccl)
+    x = _normal(rng, C, T, 2).to(nccl)
+    carry = _normal(rng, C, K - 1, 2).to(nccl)
+    y, c2 = time_sharded_resampler(make_mesh(1, "t"), taps, M, L)(x, carry)
+    xh = torch.cat([carry, x], dim=1)
+    ref = torch.stack([polyphase_fir(s, tq, M, L, K, "planar", 0)
+                       for s in xh])
+    assert y.shape == (C, T * L // M, 2)
+    assert (y - ref).abs().max().item() <= 1e-4
+    assert torch.equal(c2, x[:, T - (K - 1):])
+
+
+def test_nccl_compile_chain_sharded_fm_equals_compile_chain(nccl):
+    """The FM chain channel-sharded on one rank equals compile_chain bit
+    for bit over two steps (E1 launched)."""
+    from pothoscomms_tpu_torch import BlockRegistry
+    from pothoscomms_tpu_torch.parallel.compiler import (
+        compile_chain, compile_chain_sharded)
+    from pothoscomms_tpu_torch.parallel.mesh import make_mesh
+
+    def blocks():
+        demod = BlockRegistry.make("/comms/freq_demod", "complex_float32")
+        dc = BlockRegistry.make("/comms/dc_removal", "float32")
+        dc.set_average_size(64)
+        dc.set_cascade_size(2)
+        env = BlockRegistry.make("/comms/envelope_detector", "float32")
+        env.set_attack(10.0)
+        env.set_release(40.0)
+        return [demod, dc, env]
+
+    rng = np.random.default_rng(15)
+    C, T = 16, 16384
+    step_s, carry_s = compile_chain_sharded(blocks(), C, make_mesh(1))
+    step_1, carry_1 = compile_chain(blocks(), C, device=nccl)
+    for _ in range(2):
+        ph = np.cumsum(rng.uniform(-0.5, 0.5, (C, T)), axis=1)
+        x = torch.from_numpy(np.stack([np.cos(ph), np.sin(ph)], -1).astype(
+            np.float32)).to(nccl)
+        before = envelope_rows.launches
+        y_s, carry_s = step_s(x, carry_s)
+        assert envelope_rows.launches > before
+        y_1, carry_1 = step_1(x, carry_1)
+        assert torch.equal(y_s, y_1)
+
+
+def test_nccl_run_sharded_link_16_channels(nccl):
+    """run_sharded_link on one rank: one S1 launch for the 16 channels,
+    every channel exact, the arrays equal run_link's bit for bit."""
+    from pothoscomms_tpu_torch.kernels.sync_search import sync_search
+    from pothoscomms_tpu_torch.parallel.link import run_link, run_sharded_link
+    from pothoscomms_tpu_torch.parallel.mesh import make_mesh
+
+    before = sync_search.launches
+    res = run_sharded_link(make_mesh(1), 16, n_bits=64, seed=7)
+    assert sync_search.launches == before + 1
+    assert res["all_exact"] and res["devices"] == 1, res["bit_exact"]
+    ref = run_link(16, n_bits=64, seed=7, device=nccl)
+    for a, b in zip(res["arrays"], ref["arrays"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_nccl_dryrun_multichip_on_one_card(nccl):
+    from pothoscomms_tpu_torch.parallel.dryrun import dryrun_multichip, entry
+
+    out = dryrun_multichip(1)
+    assert out["channel_fir_fft"][1] < 1e-4 and out["time_fir"][1] <= 1e-4
+    fn, args = entry()
+    spec, _ = fn(*args)
+    assert spec.is_cuda and spec.shape == (8, 8, 256, 2)

@@ -245,6 +245,45 @@ def test_cli_runs_where_jax_cannot_be_imported():
     assert runs["nonsense"].returncode == 2
 
 
+def test_cli_self_test_runs_the_named_file():
+    """``self-test FILE`` runs the port's tests of that file alone (pytest
+    in a subprocess, the options passed through) and returns pytest's
+    exit code."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pothoscomms_tpu_torch", "self-test",
+         "tests/test_torch_placement.py", "-p", "no:cacheprovider"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert " passed" in proc.stdout and "failed" not in proc.stdout
+
+
+def test_cli_self_test_picks_the_card_tests_without_jax(monkeypatch):
+    """Where JAX is not installed, the default set is the card's tests,
+    run without tests/conftest.py (which imports JAX); with JAX, every
+    tests/test_torch_*.py."""
+    import importlib.util
+
+    from pothoscomms_tpu_torch import __main__ as cli
+
+    calls = []
+    monkeypatch.setattr(subprocess, "call",
+                        lambda cmd, **kw: calls.append(cmd) or 0)
+    assert cli.main(["self-test", "-x"]) == 0
+    files = [a for a in calls[0] if a.endswith(".py")]
+    assert len(files) > 30 and all("test_torch_" in f for f in files)
+    assert "--noconftest" not in calls[0] and calls[0][-1] == "-x"
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name == "jax"
+                        else real(name, *a))
+    assert cli.main(["self-test", "-k", "sync_search"]) == 0
+    cmd = calls[1]
+    assert [a for a in cmd if a.endswith(".py")] == [
+        str(REPO / "tests" / "test_torch_cuda.py")]
+    assert cmd[-3:] == ["--noconftest", "-k", "sync_search"]
+
+
 def test_catalog_has_no_unconstructible_entries():
     cat = catalog()
     broken = [p for p, d in cat.items() if d.get("type") == "?"]
