@@ -226,7 +226,20 @@ Phases, one or more lines each:
      run_sharded_link at 256 channels x 4000-bit frames (noise 0.001),
      S1 once at [256, 32768], every channel exact, the arrays equal to
      [21]'s run_link bit for bit and within the float64 oracle's bounds;
-     (g) path "dryrun_multichip": dryrun_multichip(1) on the card.
+     (g) path "dryrun_multichip": dryrun_multichip(1) on the card;
+ 28. the BASELINE bench suite (phase_28): benches_torch/bench_suite.py in
+     this process on the card, every workload at its defaults (the JAX
+     suite's sizes), each a path "bench_<name>": fir_1ch (K1, the
+     Toeplitz FIR of a source-headed segment), fft_64ch_1024 (K2 at
+     [2048, 1024]), resampler_3_2 (K1 at [32768, 288] x [288, 384]),
+     fm_chain_256ch (E1 at [256, 16384]), digital_link, digital_modem_bulk
+     and digital_link_sharded (a one-rank NCCL group; S1 at [2, L]); each
+     line printed, with no error and every gate passed, and K1 on the
+     tensor cores; each launch shape no earlier phase held is held against
+     its plain version here (K1 through k1_at, K2 below 2e-5 of max
+     |plain|, S1 and its plain version within the float64 oracle's
+     bounds); then `python -m pothoscomms_tpu_torch bench fft_64ch_1024`
+     as a subprocess: exit 0 and its one line.
 Then a JSON line of per-kernel results (with each kernel's bound_ms and
 bound_by, from this run's shapes and the H100's published peaks, and
 library_ms, one PyTorch call computing the same function, or null) and,
@@ -241,11 +254,11 @@ reported apart, as ``conv_branch_launches``. K1's entry adds
 each tensor-core launch also launches the operator kernel,
 ``tf32_operator``) and ``by_shape`` (K1 at the split step's and the
 resampler's shapes: its ms, on the card, its plain version's, one complex64
-torch.matmul's and its bound); S1's entry adds ``by_shape`` (the link's
-and FrameSync's launch shapes: launches, the compiled kernel's plan, ms,
-on the card, bound); every K1 launch of the main path, the block
-API, the split step and the resampler paths must go to its tensor-core
-variant.
+torch.matmul's and its bound); S1's entry adds ``by_shape`` (the link's,
+FrameSync's and [28]'s sharded link's launch shapes: launches, the
+compiled kernel's plan, ms, on the card, bound); every K1 launch of the
+main path, the block API, the split step, the resampler paths and the
+bench suite must go to its tensor-core variant.
 """
 
 import contextlib
@@ -1107,6 +1120,149 @@ def phase_27(c, T=N27, CL=256):
             dist.destroy_process_group()
         shutil.rmtree(store_dir, ignore_errors=True)
     return launches, summary
+
+
+
+def phase_28(c):
+    """[28] the BASELINE bench suite of ``benches_torch/bench_suite.py``
+    in this process on the card, every workload at its defaults (the JAX
+    suite's sizes), each a path with the launch counts set to 0 just
+    before it and read just after; then ``python -m pothoscomms_tpu_torch
+    bench fft_64ch_1024`` once as a subprocess.
+
+    ``c`` holds what main() set up: as phase_26's, and ``s1_by_shape``
+    with S1's ``card_plan`` and ``work``. Every workload's line must carry
+    no error and pass its gates; K1 must launch on the tensor cores in
+    fir_1ch and resampler_3_2, K2 in fft_64ch_1024, E1 in fm_chain_256ch
+    and S1 in digital_link_sharded. One launch of each shape the suite
+    launched that an earlier phase did not hold is held against its plain
+    version here. Returns the launch counts of each workload's path."""
+    import torch
+
+    import bench_suite
+    from pothoscomms_tpu_torch.core.testing import (search_agreement,
+                                                    sync_search_f64)
+    from pothoscomms_tpu_torch.kernels.cgemm import TENSOR_CORES
+    from pothoscomms_tpu_torch.kernels.fft import fft_c2c, fft_c2c_plain
+    from pothoscomms_tpu_torch.kernels.sync_search import (sync_search,
+                                                           sync_search_plain)
+    from pothoscomms_tpu_torch.ops import framing as framing_ops
+    from pothoscomms_tpu_torch.parallel import fft as pfft_mod
+
+    dev, card, check = c.dev, c.card, c.check
+    launches, lines = {}, {}
+    k1_calls, k2_calls, s1_calls = {}, {}, {}
+
+    def first_call(calls, key):
+        """Notes a call by its key, keeping the first call's inputs."""
+        def note(args, out):
+            k = key(args)
+            if k not in calls:
+                calls[k] = [a.clone() if isinstance(a, torch.Tensor) else a
+                            for a in args]
+        return note
+
+    k1_key = lambda a: (tuple(a[0].shape[:2]), tuple(a[1].shape))  # noqa
+    t_phase = time.perf_counter()
+    for name, workload in bench_suite.ALL.items():
+        since = len(c.e1_launched)
+        c.zero_counts()
+        with contextlib.ExitStack() as stack:
+            for mod in c.k1_modules:
+                stack.enter_context(c.watched(mod, "cgemm", first_call(
+                    k1_calls.setdefault(name, {}), k1_key)))
+            stack.enter_context(c.watched(pfft_mod, "fft_c2c", first_call(
+                k2_calls, lambda a: tuple(a[0].shape))))
+            stack.enter_context(c.watched(framing_ops, "sync_search",
+                                          first_call(s1_calls, lambda a: (
+                                              tuple(a[0].shape), a[-1]))))
+            stack.enter_context(c.watched(c.fops, "envelope_rows", c.note_e1))
+            line = workload(device=dev)
+        launches[f"bench_{name}"] = counts = c.read_counts()
+        lines[name] = line
+        print(f"[28] {name} on {card}: {json.dumps(line)}; launches {counts}")
+        check(bench_suite.passed(line), f"[28] {name} failed: {line}")
+        check(counts["cgemm_by_variant"][TENSOR_CORES] == counts["cgemm"],
+              f"[28] a cgemm launch of {name} missed the tensor cores")
+        if name == "fm_chain_256ch":
+            c.hold_e1_launches(f"bench_{name}", since)
+    want = {"fir_1ch": "cgemm", "resampler_3_2": "cgemm",
+            "fft_64ch_1024": "fft_c2c", "fm_chain_256ch": "envelope",
+            "digital_link_sharded": "sync_search"}
+    for name, kernel in want.items():
+        check(launches[f"bench_{name}"][kernel] >= 1,
+              f"[28] {name} did not launch {kernel}")
+
+    # K1 at each shape no earlier phase held
+    held = {r["shape"] for r in c.k1_by_shape}
+    for name, calls in k1_calls.items():
+        for (ab, g), args in calls.items():
+            if f"[{ab[0]},{ab[1]}]x[{g[0]},{g[1]}]" not in held:
+                c.k1_by_shape.append(c.k1_at(28, *args[:3],
+                                             f"bench_{name}"))
+                held.add(c.k1_by_shape[-1]["shape"])
+    print(f"[28] K1 shapes by workload: "
+          f"{ {n: sorted(v) for n, v in k1_calls.items() if v} }")
+    # K2 at the suite's shape, against its plain version
+    for shape, args in k2_calls.items():
+        got, ref = fft_c2c(*args), fft_c2c_plain(*args)
+        c.sync()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        print(f"[28] fft_c2c {list(shape[:2])}: /max|plain| {rel:.3e} "
+              f"(limit 2e-5)")
+        check(rel < 2e-5, f"[28] fft_c2c at {shape} disagrees with its "
+                          f"plain version")
+    # S1 at the sharded link's shape, against its plain version, both
+    # within the float64 oracle's bounds (as in [21])
+    for (shape, n), args in s1_calls.items():
+        got, ref = sync_search(*args), sync_search_plain(*args)
+        c.sync()
+        d_scale = (got[0] - ref[0]).abs().max().item()
+        oracle = sync_search_f64(args[0].cpu().numpy(), [1.0], *args[2:])
+        for label, arrays in (("S1", got), ("plain", ref)):
+            agree = search_agreement([a.cpu().numpy() for a in arrays],
+                                     oracle)
+            print(f"[28] sync_search {list(shape)} n={n}, {label} vs float64 "
+                  f"oracle: {agree}")
+            check(agree["scale_zero_mismatch"] == 0
+                  and agree["peak_mismatch"] == 0
+                  and agree["scale_rel"] <= 1e-5
+                  and agree["delta_fc_abs"] <= 1e-5
+                  and agree["phase_abs"] <= 2e-3,
+                  f"[28] {label} at {shape} disagrees with the float64 oracle")
+        b = bound(*c.work(shape[0], shape[1], n, *args[3:7]))
+        fn = lambda x: sync_search(x, *args[1:])  # noqa: E731
+        ms = c.event_ms(fn, [(args[0],)], calls=20)
+        dev_ms = c.device_ms(fn, [(args[0],)], calls=20, per_call=1,
+                             floor_ms=b[0])
+        c.s1_by_shape[f"{shape[0]}x{shape[1]}"] = {
+            "path": "bench_digital_link_sharded", "launches": launches[
+                "bench_digital_link_sharded"]["sync_search"],
+            "plan": c.card_plan(shape[0], n, args[3]), "ms": ms,
+            "device_ms": dev_ms, "bound_ms": b[0], "bound_by": b[1]}
+        print(f"[28] on {card}: sync_search {list(shape)} n={n}: max|d scale| "
+              f"{d_scale:.3e} against its plain version; {ms:.4f} ms by "
+              f"events, {c.f4(dev_ms)} on the card; bound {b[0]:.5f} ms by "
+              f"{b[1]}")
+    check(bool(s1_calls), "[28] the sharded link made no S1 call")
+
+    # the CLI, as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pothoscomms_tpu_torch", "bench",
+         "fft_64ch_1024"], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=600)
+    out = proc.stdout.strip().splitlines()
+    print(f"[28] python -m pothoscomms_tpu_torch bench fft_64ch_1024: exit "
+          f"{proc.returncode} in {time.perf_counter() - t0:.1f} s: {out}")
+    check(proc.returncode == 0 and len(out) == 1
+          and json.loads(out[0])["metric"] == "fft_64ch_1024pt",
+          f"[28] the CLI's bench failed: {proc.stderr[-2000:]}")
+    print(f"[28] the phase took {time.perf_counter() - t_phase:.1f} s")
+    print(f"[28] summary on {card}: " + json.dumps(
+        {n: {k: v for k, v in line.items() if k != "metric"}
+         for n, line in lines.items()}))
+    return launches
 
 
 def _fm_run(step, carry, xs):
@@ -3481,6 +3637,17 @@ def main() -> int:
     del arrays21
     print(f"[27] summary on {card}: {json.dumps(summary27)}")
 
+    # -- 28. the BASELINE bench suite (phase_28) ---------------------------
+    launches28 = phase_28(SimpleNamespace(
+        dev=dev, card=card, check=check, sync=torch.cuda.synchronize,
+        zero_counts=zero_counts, read_counts=read_counts, watched=watched,
+        k1_at=k1_at, k1_by_shape=k1_by_shape,
+        k1_modules=(cplx_mod, chain_mod, fops, pfft_mod), fops=fops,
+        e1_launched=e1_launched, note_e1=note_e1,
+        hold_e1_launches=hold_e1_launches, event_ms=event_ms,
+        device_ms=device_ms, f4=f4, s1_by_shape=s1_by_shape,
+        card_plan=card_plan, work=work))
+
     by_path = {"chain": launches, "one_pass": launches3,
                "block_api": launches_b, "stream_ceiling": launches_p1,
                "layout": launches_p2, "fm_chain": launches_fm,
@@ -3492,7 +3659,7 @@ def main() -> int:
                "wave_chain_block_api": launches23,
                "fm_source_block_api": launches24,
                "math_fanin_block_api": launches25, **launches26,
-               **launches27}
+               **launches27, **launches28}
     par = "pothoscomms_tpu/parallel/pallas_kernels.py"
     # the bound of each kernel at the shape its ms was taken: bytes of its
     # inputs and outputs, and the float32 operations of its function

@@ -7,12 +7,19 @@ block discovery (SURVEY.md §3.5):
     python -m pothoscomms_tpu_torch doc /comms/fir_filter float32 REAL
     python -m pothoscomms_tpu_torch self-test          # the port's tests
     python -m pothoscomms_tpu_torch self-test tests/test_torch_mesh.py -x
+    python -m pothoscomms_tpu_torch bench [--device DEV] [name ...]
 
 ``self-test`` runs the port's tests from a source checkout with pytest:
 ``tests/test_torch_*.py`` where JAX is installed (they hold the port
 against the JAX package), else ``tests/test_torch_cuda.py`` alone with
 ``--noconftest`` (the card's tests, which import no JAX). Arguments that
 name existing files replace that set; the others pass through to pytest.
+``bench`` runs the BASELINE bench suite of a source checkout
+(``benches_torch/bench_suite.py``: fir_1ch, fft_64ch_1024, resampler_3_2,
+fm_chain_256ch, digital_link, digital_modem_bulk, digital_link_sharded;
+all by default) on the card, or on ``--device``, one JSON line a
+workload; it exits 1 when a workload raises or fails its gate, and 2 for
+an unknown name.
 ``doc`` reads its constructor arguments as Python literals where they
 parse as one (``1024``, ``False``) and as strings otherwise. An unknown
 command, or a block that cannot be built, exits with code 2.
@@ -95,11 +102,28 @@ def cmd_self_test(args):
     )
 
 
+def cmd_bench(args):
+    import importlib.util
+    from pathlib import Path
+
+    suite = Path(__file__).resolve().parent.parent / "benches_torch" \
+        / "bench_suite.py"
+    if not suite.exists():
+        print("bench requires the source checkout (benches_torch/ not "
+              "packaged)", file=sys.stderr)
+        return 2
+    spec = importlib.util.spec_from_file_location("bench_suite", suite)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main(args)
+
+
 COMMANDS = {
     "list": cmd_list,
     "catalog": cmd_catalog,
     "doc": cmd_doc,
     "self-test": cmd_self_test,
+    "bench": cmd_bench,
 }
 
 

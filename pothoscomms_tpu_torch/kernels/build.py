@@ -1,9 +1,11 @@
 """Build the CUDA sources of ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
-first use into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of
-the checkout (the hash covers the source, the shared ``csrc/*.cuh``
-headers and the flags, so an edited source or header rebuilds). The
+first use into ``BUILD_DIR/lib<name>-<hash>.so`` (the hash covers the
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header rebuilds): ``build/torch_kernels`` at the root of a
+source checkout, the user's cache for an installed wheel
+(:func:`build_dir`). The
 compiler's output, including ``-Xptxas -v``'s register and shared-memory
 report, is kept beside the library as ``lib<name>-<hash>.log``.
 
@@ -22,8 +24,22 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+
+def build_dir(package: Path) -> Path:
+    """Where the libraries of ``package`` (the ``pothoscomms_tpu_torch``
+    directory) are built: ``build/torch_kernels`` beside it in a source
+    checkout (whose root holds ``pyproject.toml``); else, for an installed
+    wheel, ``pothoscomms_tpu_torch/torch_kernels`` under the user's cache
+    (``$XDG_CACHE_HOME``, else ``~/.cache``), not in site-packages."""
+    root = package.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "torch_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "pothoscomms_tpu_torch" / "torch_kernels"
+
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+BUILD_DIR = build_dir(CSRC.parent)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"  # the CUDA toolkit's default prefix

@@ -1328,3 +1328,44 @@ def test_nccl_dryrun_multichip_on_one_card(nccl):
     fn, args = entry()
     spec, _ = fn(*args)
     assert spec.is_cuda and spec.shape == (8, 8, 256, 2)
+
+
+# ------------------------------------------------------------------ #
+# the BASELINE bench suite (benches_torch/bench_suite.py), small
+# ------------------------------------------------------------------ #
+def _bench_suite():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "benches_torch" \
+        / "bench_suite.py"
+    spec = importlib.util.spec_from_file_location("bench_suite_card", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name,sizes,kernel", [
+    ("fir_1ch", dict(n=1 << 17, reps=2), "cgemm"),
+    ("fft_64ch_1024", dict(channels=2, frames=4, iters=2), "fft_c2c"),
+    ("resampler_3_2", dict(channels=2, n=1024, iters=2), "cgemm"),
+    ("fm_chain_256ch", dict(channels=4, t=2048, pool=2, iters=2),
+     "envelope_rows"),
+    ("digital_link", dict(n_frames=4), None),
+    ("digital_modem_bulk", dict(n_bits=1 << 17), None),
+    ("digital_link_sharded", dict(), "sync_search")])
+def test_bench_suite_workload_on_card_passes_its_gates(dev, name, sizes,
+                                                       kernel):
+    """Each workload of the suite, small, on the card: its line passes its
+    gates (parity, bit_exact, quiesced, all_exact, every frame of the
+    link) and it launched the hand kernel on its path."""
+    from pothoscomms_tpu_torch.kernels.sync_search import sync_search
+
+    wrappers = {"cgemm": cgemm, "fft_c2c": fft_c2c,
+                "envelope_rows": envelope_rows, "sync_search": sync_search}
+    suite = _bench_suite()
+    before = wrappers[kernel].launches if kernel else 0
+    line = suite.ALL[name](device=dev, **sizes)
+    assert suite.passed(line), line
+    if kernel:
+        assert wrappers[kernel].launches > before, line
