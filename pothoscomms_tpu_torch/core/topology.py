@@ -29,6 +29,7 @@ from typing import List, Tuple
 
 from pothoscomms_tpu_torch.core import placement
 from pothoscomms_tpu_torch.core.block import Block
+from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 
 class Topology:
@@ -44,6 +45,8 @@ class Topology:
         self.fuse_threshold: int = 1 << 16
         self._segments: List = []
         self._seg_by_block: dict = {}
+        # each block's span name ("pc.block.<Class>"), made when it joins
+        self._block_spans: dict = {}
 
     # ------------------------------------------------------------------ #
     # Graph construction
@@ -52,6 +55,7 @@ class Topology:
         if blk not in self.blocks:
             self.blocks.append(blk)
             blk._topology = self
+            self._block_spans[id(blk)] = "pc.block." + type(blk).__name__
 
     def connect(self, src: Block, src_port, dst: Block, dst_port) -> None:
         """Connect a stream edge or a signal→slot edge.
@@ -155,6 +159,10 @@ class Topology:
         engage; when the graph would otherwise report quiescence with
         engaged segments still holding sub-quantum data, they
         disengage so the streaming path drains the remainder."""
+        with annotate("pc.topology.round"):
+            return self._round()
+
+    def _round(self) -> bool:
         before = self._state_fingerprint()
         for blk in self.blocks:
             seg = self._seg_by_block.get(id(blk))
@@ -167,7 +175,8 @@ class Topology:
                         seg.try_engage()
                     if seg.engaged:
                         t0 = time.perf_counter()
-                        seg.work()
+                        with annotate("pc.segment.work"):
+                            seg.work()
                         if not seg.engaged:
                             # disengaged mid-slot. Reconfig (epoch
                             # bump): re-engage right away with rebuilt
@@ -179,7 +188,8 @@ class Topology:
                                     >= self.fuse_threshold):
                                 seg.try_engage()
                             if seg.engaged:
-                                seg.work()
+                                with annotate("pc.segment.work"):
+                                    seg.work()
                         blk._work_time += time.perf_counter() - t0
                         blk._work_calls += 1
                         if seg.engaged:
@@ -193,7 +203,8 @@ class Topology:
             for o in blk.outputs.values():
                 o._produced_this_work = 0
             t0 = time.perf_counter()
-            blk.work()
+            with annotate(self._block_spans[id(blk)]):
+                blk.work()
             blk._work_time += time.perf_counter() - t0
             blk._work_calls += 1
         # return any backlog a segment withheld from a label-bounded

@@ -15,5 +15,6 @@
 
 Each wrapper launches its kernel for a CUDA tensor, uses its plain
 PyTorch version for a CPU tensor, and counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``. A launch's host enqueue runs inside the span
+``pc.kernel.<wrapper>`` (``parallel/profiling.annotate``).
 """

@@ -21,6 +21,7 @@ from functools import lru_cache
 import torch
 
 from pothoscomms_tpu_torch.kernels import build
+from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 TENSOR_CORES, SIMT = "tensor_cores", "simt"
 
@@ -139,7 +140,8 @@ def cgemm(a: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,
     On CUDA every operand must be contiguous float32; the kernel runs on
     the current stream. The tensor-core variant builds its operator from
     gr, gi on each call (:func:`tf32_operator`, 38 MB at N = 1152,
-    M = 1024).
+    M = 1024). The launch, the operator build included, runs inside the
+    span ``pc.kernel.cgemm``.
     """
     _check(a, gr, gi)
     if out is not None and (out.shape != (a.shape[0], gr.shape[1], 2)
@@ -156,7 +158,9 @@ def cgemm(a: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,
     if not all(t.is_contiguous() for t in (a, gr, gi)):
         raise ValueError("cgemm: operands must be contiguous")
     n, m = gr.shape
-    return _launch(a, gr, gi, variant(n, m, a.data_ptr() % 16 == 0), out)
+    with annotate("pc.kernel.cgemm"):
+        return _launch(a, gr, gi, variant(n, m, a.data_ptr() % 16 == 0),
+                       out)
 
 
 def _launch(a: torch.Tensor, gr: torch.Tensor, gi: torch.Tensor,

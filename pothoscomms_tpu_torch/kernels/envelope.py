@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from pothoscomms_tpu_torch.kernels import build
+from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 
 def _check(mag, env0, L, Wr):
@@ -93,7 +94,7 @@ def envelope_rows(mag: torch.Tensor, env0: torch.Tensor, ga, gr, L: int,
                          f"kernel's grid")
     y = torch.empty_like(mag)
     env_f = torch.empty_like(env0)
-    with torch.cuda.device(mag.device):
+    with annotate("pc.kernel.envelope_rows"), torch.cuda.device(mag.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(mag.data_ptr(), env0.data_ptr(), y.data_ptr(),
                        env_f.data_ptr(), P, T, L, Wr, float(np.float32(ga)),

@@ -30,6 +30,7 @@ import torch
 
 from pothoscomms_tpu_torch.kernels import build
 from pothoscomms_tpu_torch.kernels.cgemm import cgemm_plain
+from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 MAX_N = 4096  # largest row the kernel holds in shared memory
 
@@ -246,7 +247,7 @@ def fft_c2c(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     if -(-b // (plan.rows if plan else 1)) >= 2 ** 31:
         raise ValueError(f"fft_c2c: B={b} exceeds the kernel's grid")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with annotate("pc.kernel.fft_c2c"), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if plan is None:
             tw = _twiddle_table(n, inverse, x.device)

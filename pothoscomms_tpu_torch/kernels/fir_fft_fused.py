@@ -37,6 +37,7 @@ from pothoscomms_tpu_torch.kernels import build
 from pothoscomms_tpu_torch.kernels.cgemm import cgemm_plain
 from pothoscomms_tpu_torch.kernels.fft import (PLAN_INTS, _plan_on,
                                                fft_c2c_plain, stockham_plan)
+from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 MAX_N = 1024   # largest window the kernel takes
 MAX_PP = 256   # largest correction length
@@ -129,7 +130,7 @@ def fir_fft_fused(x: torch.Tensor, uw, H: torch.Tensor,
         raise ValueError(f"fir_fft_fused: B={b} exceeds the kernel's grid")
     tw, ints = _plan_on(n, False, x.device)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with annotate("pc.kernel.fir_fft_fused"), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(x.data_ptr(), None if uw is None else uw.data_ptr(),
                        H.data_ptr(), gt.data_ptr(), tw.data_ptr(),

@@ -16,6 +16,7 @@ from functools import lru_cache
 import torch
 
 from pothoscomms_tpu_torch.kernels import build
+from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 MODES = ("A", "B", "C", "D")
 MAX_N = 8192  # one row must fit the kernel's shared-memory tile
@@ -61,7 +62,7 @@ def layout_move(x: torch.Tensor, mode: str) -> torch.Tensor:
     if -(-b // max(1, TILE // n)) >= 2 ** 31:
         raise ValueError(f"layout_move: B={b} exceeds the kernel's grid")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with annotate("pc.kernel.layout_move"), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(x.data_ptr(), y.data_ptr(), b, n, MODES.index(mode),
                        stream)

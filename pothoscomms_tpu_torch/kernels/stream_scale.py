@@ -17,6 +17,7 @@ from functools import lru_cache
 import torch
 
 from pothoscomms_tpu_torch.kernels import build
+from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 
 # blocks a launch may take per SM: 16 waves of the 8 resident 256-thread
@@ -65,7 +66,7 @@ def stream_scale(xr: torch.Tensor, xi: torch.Tensor,
         raise ValueError("stream_scale: planes must be contiguous")
     b, n = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    with torch.cuda.device(xr.device):
+    with annotate("pc.kernel.stream_scale"), torch.cuda.device(xr.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(),
                        yi.data_ptr(), b, n,

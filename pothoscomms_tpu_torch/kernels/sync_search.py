@@ -33,6 +33,7 @@ import torch
 
 from pothoscomms_tpu_torch.kernels import build
 from pothoscomms_tpu_torch.parallel import cplx
+from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 # window samples in one tile of the plain version's correlation,
 # [channels, offsets, sw]: each float32 plane of it is 64 MB
@@ -175,7 +176,8 @@ def sync_search(x: torch.Tensor, pre: torch.Tensor, thr: float, sw: int,
         raise ValueError(f"sync_search: {C} channels exceed the grid")
     outs = torch.empty((4, C, n), dtype=torch.float32, device=x.device)
     if n:
-        with torch.cuda.device(x.device):
+        with annotate("pc.kernel.sync_search"), \
+                torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = _entry()(x.data_ptr(), pre.data_ptr(), outs.data_ptr(),
                            C, L, n, sw, w, dw, npre, float(thr), stream)

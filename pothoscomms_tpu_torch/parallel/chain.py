@@ -37,6 +37,7 @@ from pothoscomms_tpu_torch.core import placement
 from pothoscomms_tpu_torch.kernels.cgemm import cgemm
 from pothoscomms_tpu_torch.parallel import cplx
 from pothoscomms_tpu_torch.parallel.fft import fft_planar
+from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 
 def _planes(z: np.ndarray):
@@ -197,10 +198,12 @@ def combined_operand(x: torch.Tensor, hist: torch.Tensor, nbins: int,
     c, t, _ = x.shape
     nw = t // nbins
     xw = x.reshape(c, nw, nbins, 2)
-    first = torch.cat([x.new_zeros(c, 1, prev_pad - (k - 1), 2),
-                       hist[:, None]], dim=2)
-    prev = torch.cat([first, xw[:, :-1, nbins - prev_pad:]], dim=1)
-    return torch.cat([prev, xw], dim=2).reshape(c * nw, prev_pad + nbins, 2)
+    with annotate("pc.op.combined_operand"):
+        first = torch.cat([x.new_zeros(c, 1, prev_pad - (k - 1), 2),
+                           hist[:, None]], dim=2)
+        prev = torch.cat([first, xw[:, :-1, nbins - prev_pad:]], dim=1)
+        return torch.cat([prev, xw], dim=2).reshape(c * nw,
+                                                    prev_pad + nbins, 2)
 
 
 def fir_fft_combined_step(x, hist, gr, gi, nbins: int, k: int,
@@ -412,19 +415,25 @@ class FirFftChain(nn.Module):
         else:
             self.form = "conv"
             ops = dict(kernel=complex_fir_kernel(taps))
+        self.span = "pc.fir_fft." + self.form
         device = placement.resolve(device)
         for name, op in ops.items():
             self.register_buffer(name, op.to(device))
 
     def forward(self, x: torch.Tensor, carry: torch.Tensor):
         """x [C, T, 2], carry [C, K-1, 2] -> (spectra
-        [C, T//decim//nbins, nbins, 2], carry)."""
-        if self.form == "combined":
-            return fir_fft_combined_step(x, carry, self.gr, self.gi,
-                                         self.nbins, self.k, self.prev_pad)
-        if self.form == "toeplitz":
-            return fir_fft_step_mm(x, carry, self.t0, self.t1, self.nbins)
-        return fir_fft_step(x, carry, self.kernel, self.nbins, self.decim)
+        [C, T//decim//nbins, nbins, 2], carry), inside the span
+        ``pc.fir_fft.<form>``."""
+        with annotate(self.span):
+            if self.form == "combined":
+                return fir_fft_combined_step(x, carry, self.gr, self.gi,
+                                             self.nbins, self.k,
+                                             self.prev_pad)
+            if self.form == "toeplitz":
+                return fir_fft_step_mm(x, carry, self.t0, self.t1,
+                                       self.nbins)
+            return fir_fft_step(x, carry, self.kernel, self.nbins,
+                                self.decim)
 
 
 def fir_fft_chain(taps, nbins: int, channels: int, block: int,

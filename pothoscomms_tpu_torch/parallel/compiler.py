@@ -35,17 +35,20 @@ import torch
 from pothoscomms_tpu_torch.core import placement
 from pothoscomms_tpu_torch.parallel import cplx
 from pothoscomms_tpu_torch.parallel.chain import operators_from_numpy
+from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 
 def compile_chain(blocks: Sequence[Any], channels: int, device=None):
     """Compose ``device_core``s of a block chain into one step on
     ``device`` (default: each block's own, the card outside a topology).
 
-    Returns (step, carry0): ``step(x, carry) -> (y, carry')``.
+    Returns (step, carry0): ``step(x, carry) -> (y, carry')``; each
+    block's core runs inside its span, ``pc.chain.<Class>``.
     Raises TypeError for blocks that don't provide a device core.
     """
     cores = []
     carries = []
+    spans = ["pc.chain." + type(blk).__name__ for blk in blocks]
     for blk in blocks:
         fn = getattr(blk, "device_core", None)
         if fn is None:
@@ -59,8 +62,9 @@ def compile_chain(blocks: Sequence[Any], channels: int, device=None):
 
     def chain_step(x, carry):
         new_carries = []
-        for step, c in zip(cores, carry):
-            c2, x = step(c, x)
+        for step, c, span in zip(cores, carry, spans):
+            with annotate(span):
+                c2, x = step(c, x)
             new_carries.append(c2)
         return x, tuple(new_carries)
 

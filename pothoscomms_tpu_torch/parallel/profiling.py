@@ -1,9 +1,10 @@
-"""Profiling helpers: a ``torch.profiler`` trace, named regions, and the
-analytic FLOP/byte model of the FIR -> FFT chain.
+"""Profiling helpers: a ``torch.profiler`` trace, the program's spans, and
+the analytic FLOP/byte model of the FIR -> FFT chain.
 
 - :func:`trace`: context manager writing a trace directory readable by
   TensorBoard's profiler plugin (and a Chrome-trace JSON per run).
-- :func:`annotate`: named region inside a trace.
+- :func:`annotate`: the program's span, recorded only while a profiler
+  runs.
 - :func:`chain_flops`: FLOP/byte model of the combined-operator step.
 """
 
@@ -13,7 +14,12 @@ import contextlib
 from typing import Iterator
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+from torch.profiler import ProfilerActivity, profile
+
+# the context manager every span returns while no profiler runs
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -34,8 +40,23 @@ def trace(log_dir: str) -> Iterator[profile]:
 
 
 def annotate(name: str):
-    """Named region inside a trace (host-side annotation)."""
-    return record_function(name)
+    """The program's span: ``with annotate("pc.segment.pull"): ...``.
+
+    While a ``torch.profiler`` session runs (:func:`trace`, or any other
+    caller's), the span is a range named ``name`` on the profiler's host
+    timeline, on the clock of the card's rows; otherwise it is one shared
+    no-op, and a span costs a flag test. The profiler is the only switch.
+
+    The range is recorded at function scope, as an operator's is, so it
+    has no row on the device timeline: a user-scope range
+    (``record_function``) is mirrored there under its own name, and a
+    reader of device time would count it as work. The program's span
+    names start with ``pc.``; a name that depends on a class is built
+    where the chain or topology is built, never here.
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _RecordFunctionFast(name)
 
 
 def chain_flops(channels: int, time: int, taps: int, nbins: int,

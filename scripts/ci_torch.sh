@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
 # CI lane of the PyTorch + CUDA port (pothoscomms_tpu_torch), beside
 # scripts/ci.sh: the port's tests on the CPU (held against the JAX
-# package), a gloo dry run of two ranks, and the port's wheel smoke.
+# package), a gloo dry run of two ranks, the benchmark's CPU tests and
+# the port's wheel smoke.
 # Run from anywhere in the checkout; prints one line per stage, uses no
 # network, and exits non-zero on any failure:
 #
@@ -44,7 +45,10 @@ for r in (0, 1):
 PY
 echo "dryrun ok"
 
-echo "== stage 3: wheel build + clean-venv install + CLI smoke =="
+echo "== stage 3: the benchmark's tests (benchmark/tests, CPU) =="
+python -m pytest benchmark/tests -q --tb=short -p no:cacheprovider
+
+echo "== stage 4: wheel build + clean-venv install + CLI smoke =="
 bash scripts/wheel_smoke_torch.sh
 
 echo "CI GREEN (torch)"
