@@ -8,9 +8,10 @@ shape (C=256, T=131072, K=64, NBINS=1024) it times, with CUDA events
 (3 repetitions, each the median of 10 calls after a quarter second of
 warm-up):
 
-- one step ``run(x, carry)`` of ``fir_fft_chain``;
-- ``combined_operand``, the step's operand build;
-- K1 ``cgemm`` and its plain version at the step's product,
+- one step ``run(x, carry)`` of ``fir_fft_chain`` (its one-pass form at
+  this shape);
+- ``combined_operand``, the combined step's operand build;
+- K1 ``cgemm`` and its plain version at the combined step's product,
   [32768, 1152] x [1152, 1024];
 - K2 ``fft_c2c``, its plain version and cuFFT at 32 Mi samples for
   n in 256, 1024, 4096, 384 and 1000;

@@ -27,10 +27,12 @@ Phases, one or more lines each:
      fft_planar's split for rows above K2's 4096 (8192, 16384);
   5. path "chain", the function-level main path at full width:
      fir_fft_chain(64 complex taps, 1024 bins, 256 channels, 131072
-     samples per step) for three chained steps, against the plain path on
+     samples per step), which takes its one-pass form (one K3 launch a
+     step, no K1), for three chained steps, against the plain path on
      the card, a float64 numpy oracle, and the carry contract;
   6. the conv branch (200 taps), which reaches K2;
-  7. CUDA-event timings of the kernel and plain paths: the step, K1
+  7. CUDA-event timings of the kernel and plain paths: the main path's
+     step, K1
      beside its plain version and one complex64 torch.matmul (and its
      operator build and SIMT variant apart, with K1's 3xTF32 bound, its
      share of it, and the SIMT bound for comparison; K1 and the matmul
@@ -44,8 +46,9 @@ Phases, one or more lines each:
   8. K3 (fir_fft_fused) against its plain version at [32768, 1024] with
      u_w [32768, 64] and the chain's gt [64, 64], and without u_w;
   9. path "one_pass", the one-pass chain make_fused_chain at the same
-     width for three chained steps: the float64 oracle, the combined
-     step's spectra, the carry, K3's launches; K3's time with and without
+     width for three chained steps: the float64 oracle, the spectra of
+     the combined step (K1, the form fir_fft_chain takes at other
+     shapes), the carry, K3's launches; K3's time with and without
      u_w (CUDA events, and on the card by torch.profiler), the step's
      time against the combined step's and, for information, the same
      step composed of library calls (cuFFT, the H multiply, one complex64
@@ -99,7 +102,7 @@ Phases, one or more lines each:
      pp = 64) for R in 4, 8, 16, three chained steps each on phase 5's
      inputs (C = 256, T = 131072): R K1 launches a step, each on the
      tensor cores at [32768, 64 + 1024/R] x [64 + 1024/R, 1024/R]; the
-     spectra within 1e-4 of the combined step's and of the float64
+     spectra within 1e-4 of the main path's and of the float64
      oracle on two channels, the carry exact; every stream's K1 launch
      of a step against its plain version (1e-5 of max |plain|); the
      step's time by CUDA events and on the card beside the combined and
@@ -1304,10 +1307,10 @@ def main() -> int:
     from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
         fir_fft_fused, fir_fft_fused_plain, make_fused_chain)
     from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
-        correction_spectrum, fused_consts_from_numpy)
+        correction_operand, correction_spectrum, fused_consts_from_numpy)
     from pothoscomms_tpu_torch.parallel.chain import (
-        carry_from_numpy, combined_fir_fft_operators, combined_operand,
-        fir_fft_chain, fir_multichannel, make_split_step,
+        carry_from_numpy, combined_fir_fft_operators, fir_fft_chain,
+        fir_fft_combined_step, fir_multichannel, make_split_step,
         operators_from_numpy, split_operand, stack_combined_operators)
     from pothoscomms_tpu_torch.parallel.compiler import (
         chain_carry_from_numpy, compile_chain)
@@ -1534,7 +1537,7 @@ def main() -> int:
     C, T, K, NB = 256, 131072, 64, 1024
     taps = (rng.normal(size=K) + 1j * rng.normal(size=K)) / K
     run, carry0 = fir_fft_chain(taps, NB, C, T, device=dev)
-    check(run.form == "combined", f"main path took the {run.form} branch")
+    check(run.form == "one_pass", f"main path took the {run.form} branch")
     xs_host = [normal(C, T, 2) for _ in range(3)]
     xs = [on_card(x) for x in xs_host]
     C6, T6, K6 = 16, 16384, 200
@@ -1579,20 +1582,27 @@ def main() -> int:
 
     # -- 5. checks of the main path ---------------------------------------
     print(f"[5] main path fir_fft_chain C={C} T={T} K={K} NBINS={NB} "
-          f"({run.form}): launches cgemm {launches['cgemm']} "
-          f"{launches['cgemm_by_variant']}, fft_c2c {launches['fft_c2c']}")
-    check(launches["cgemm"] >= 3, "main path did not launch cgemm each step")
-    check(launches["cgemm_by_variant"][TENSOR_CORES] == launches["cgemm"],
-          "a main-path cgemm launch missed the tensor-core variant")
-    check(launches["tf32_operator"] == launches["cgemm"],
-          "a main-path tensor-core launch did not build its operator")
+          f"({run.form}): launches fir_fft_fused {launches['fir_fft_fused']}"
+          f", cgemm {launches['cgemm']}, fft_c2c {launches['fft_c2c']}")
+    check(launches["fir_fft_fused"] == len(xs),
+          "main path did not launch fir_fft_fused once a step")
+    check(launches["cgemm"] == launches["tf32_operator"] == 0,
+          "main path launched cgemm")
+    # the plain path: K3's plain version on the same correction operand,
+    # its Gc planes built once
+    pp5, gc5 = run.gt.shape[0], correction_spectrum(run.gt, NB)
+
+    def plain_step(x, carry):
+        return fir_fft_fused_plain(
+            x.reshape(-1, NB, 2), correction_operand(x, carry, NB, K, pp5),
+            run.H, run.gt, gc5)
+
     for s, x in enumerate(xs):
         spec = specs[s]
         check(spec.shape == (C, T // NB, NB, 2), f"step {s} shape "
                                                  f"{tuple(spec.shape)}")
         check(bool(torch.isfinite(spec).all()), f"step {s} not finite")
-        ref = cgemm_plain(combined_operand(x, carries[s], NB, K, run.prev_pad),
-                          run.gr, run.gi).reshape(spec.shape)
+        ref = plain_step(x, carries[s]).reshape(spec.shape)
         _, rel = errs(spec, ref)
         exact = torch.equal(carries[s + 1], x[:, T - (K - 1):])
         print(f"[5] step {s}: /max|plain| {rel:.3e} (limit 1e-5), carry "
@@ -1633,8 +1643,7 @@ def main() -> int:
     # stacked operator buffers as the kernel step ----------------------
     x0 = xs[0]
     step_ms = median_ms(lambda: run(x0, carry0))
-    step_plain_ms = median_ms(lambda: cgemm_plain(
-        combined_operand(x0, carry0, NB, K, run.prev_pad), run.gr, run.gi))
+    step_plain_ms = median_ms(lambda: plain_step(x0, carry0))
     k1_ms = median_ms(lambda: cgemm(a_main, gr, gi))
     k1_plain_ms = median_ms(lambda: cgemm_plain(a_main, gr, gi))
     # K1's tensor-core variant rebuilds its operator on each call: that
@@ -1734,11 +1743,18 @@ def main() -> int:
           f"{launches3}")
     check(launches3["fir_fft_fused"] >= 3,
           "the one-pass chain did not launch fir_fft_fused each step")
+    # the combined step (K1) on the same taps, for comparison
+    gr9, gi9 = (g.to(dev) for g in stack_combined_operators(
+        *combined_fir_fft_operators(taps, NB, 128)))
+
+    def combined_step(x, carry):
+        return fir_fft_combined_step(x, carry, gr9, gi9, NB, K, 128)
+
     for s, x in enumerate(xs):
         check(specs3[s].shape == (C, T // NB, NB, 2)
               and bool(torch.isfinite(specs3[s]).all()),
               f"one-pass step {s}: shape or non-finite values")
-        _, rel = errs(specs3[s], specs[s])
+        _, rel = errs(specs3[s], combined_step(x, carries3[s])[0])
         exact = torch.equal(carries3[s + 1], x[:, T - (K - 1):])
         print(f"[9] step {s}: /max|combined step| {rel:.3e} (limit 1e-4), "
               f"carry exact {exact}")
@@ -1764,7 +1780,7 @@ def main() -> int:
         x8, uw8, run3.H, run3.gt, gc8))
     k3_nc_ms = median_ms(lambda: fir_fft_fused(x8, None, run3.H, run3.gt))
     one_pass_ms = median_ms(lambda: run3.run(x0, carry0))
-    combined_ms = median_ms(lambda: run(x0, carry0))
+    combined_ms = median_ms(lambda: combined_step(x0, carry0))
     # K3's bound: the bytes of x, u_w, H, gt and y, and the operations of
     # the function in its cheapest form: x's FFT, the pp S products of
     # c_w = u_w gt, c_w's FFT without the first pass (a copy when S <=
@@ -1805,7 +1821,7 @@ def main() -> int:
           f"({C * T / one_pass_ms / 1e3:.1f} Msamples/s), combined step "
           f"{combined_ms:.3f} ms")
     del x8, uw8, got, ref, got_nc, ref_nc, specs3, carries3
-    del x8_c, uw8_c, gc_c, gc8
+    del x8_c, uw8_c, gc_c, gc8, gr9, gi9
 
     # -- 10. path "block_api": FIR -> FFT through Topology(device) -------
     from pothoscomms_tpu_torch.core import fusion
@@ -2440,10 +2456,10 @@ def main() -> int:
                   f"split R={R} step {s}: shape or non-finite values")
             _, rel = errs(spec, specs[s])
             exact = torch.equal(split_carries[R][s + 1], x[:, T - (K - 1):])
-            print(f"[17] R={R} step {s}: /max|combined step| {rel:.3e} "
+            print(f"[17] R={R} step {s}: /max|main path| {rel:.3e} "
                   f"(limit 1e-4), carry exact {exact}")
             check(rel < 1e-4 and exact, f"split R={R} step {s} disagrees "
-                                        f"with the combined step or carry")
+                                        f"with the main path or carry")
         for ch, exp in oracle17.items():
             got = split_specs[R][2][ch].cpu().numpy()
             rel = np.max(np.abs(got[..., 0] + 1j * got[..., 1] - exp)) \

@@ -7,8 +7,9 @@ the port is tested against (``tests/test_torch_*.py``).
 So far it covers:
 
 - the FIR -> FFT chain as functions (:mod:`.parallel`) in three forms
-  (the combined operator, the split-stream step, the one-pass kernel of
-  :mod:`.kernels.fir_fft_fused`), its complex products and FFTs on
+  (the one-pass kernel of :mod:`.kernels.fir_fft_fused`, which
+  ``fir_fft_chain`` takes at 1024 bins and K <= 65 taps; the combined
+  operator, which it takes at other shapes; the split-stream step), its complex products and FFTs on
   hand-written CUDA kernels (:mod:`.kernels`, sources in ``csrc/``);
 - the block API: the streaming runtime (:mod:`.core`), the fixture
   blocks, the filter blocks (FIR with rational rates, IIR, DC removal,

@@ -19,8 +19,10 @@ transforms it with x_w's plan.
   :func:`fused_consts_from_numpy` takes the JAX ``_fused_chain_consts``
   tuple (Mosaic layouts, Gc in the frequency domain) to the same arrays;
   :func:`correction_spectrum` rebuilds Gc from gt.
-- :func:`make_fused_chain` builds :class:`FusedFirFftChain`, the
-  one-pass FIR -> FFT chain with the K-1 sample carry.
+- :func:`one_pass_step` is one step of the one-pass FIR -> FFT chain
+  with the K-1 sample carry; :func:`make_fused_chain` builds
+  :class:`FusedFirFftChain`, which runs it, and ``fir_fft_chain`` takes
+  it as its ``"one_pass"`` form.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 MAX_N = 1024   # largest window the kernel takes
 MAX_PP = 256   # largest correction length
+ONE_PASS_PP = 64  # the one-pass chain's correction length
 SUPPORT_ENERGY = 1e-6  # share of a Gc row's energy allowed outside gt
 
 
@@ -232,10 +235,27 @@ def correction_operand(x: torch.Tensor, hist: torch.Tensor, nbins: int,
     the front to pp, as ``make_fused_pallas_chain`` builds it."""
     c, t, _ = x.shape
     nw = t // nbins
-    tails = x.reshape(c, nw, nbins, 2)[:, :, nbins - (k - 1):]
-    prev = torch.cat([hist[:, None], tails[:, :-1]], dim=1)
-    pad = x.new_zeros(c, nw, pp - (k - 1), 2)
-    return torch.cat([pad, prev - tails], dim=2).reshape(c * nw, pp, 2)
+    with annotate("pc.op.correction_operand"):
+        tails = x.reshape(c, nw, nbins, 2)[:, :, nbins - (k - 1):]
+        prev = torch.cat([hist[:, None], tails[:, :-1]], dim=1)
+        pad = x.new_zeros(c, nw, pp - (k - 1), 2)
+        return torch.cat([pad, prev - tails], dim=2).reshape(c * nw, pp, 2)
+
+
+def one_pass_step(x: torch.Tensor, hist: torch.Tensor, H: torch.Tensor,
+                  gt: torch.Tensor, k: int):
+    """One one-pass FIR+FFT step on K3: x [C, T, 2], hist [C, K-1, 2] ->
+    (spec [C, T//nbins, nbins, 2], new_hist [C, K-1, 2]), nbins = H's
+    length and pp = gt's rows (:func:`fused_chain_consts`). T must be a
+    multiple of nbins; the new carry is the last K-1 raw inputs."""
+    c, t, _ = x.shape
+    nbins, pp = H.shape[0], gt.shape[0]
+    if t % nbins:
+        raise ValueError(f"T={t} is not a multiple of {nbins}")
+    nw = t // nbins
+    uw = correction_operand(x, hist, nbins, k, pp)
+    spec = fir_fft_fused(x.reshape(c * nw, nbins, 2).contiguous(), uw, H, gt)
+    return spec.reshape(c, nw, nbins, 2), x[:, t - (k - 1):].contiguous()
 
 
 class FusedFirFftChain(nn.Module):
@@ -244,7 +264,7 @@ class FusedFirFftChain(nn.Module):
     The contract of
     ``make_fused_pallas_chain`` holds: K - 1 <= pp and nbins == 1024."""
 
-    def __init__(self, taps, nbins: int, pp: int = 64, device=None):
+    def __init__(self, taps, nbins: int, pp: int = ONE_PASS_PP, device=None):
         super().__init__()
         taps = np.asarray(taps)
         self.k, self.nbins, self.pp = len(taps), int(nbins), int(pp)
@@ -261,21 +281,14 @@ class FusedFirFftChain(nn.Module):
 
     def forward(self, x: torch.Tensor, hist: torch.Tensor):
         """x [C, T, 2], hist [C, K-1, 2] -> (spec [C, T//nbins, nbins, 2],
-        new_hist [C, K-1, 2]). T must be a multiple of nbins."""
-        c, t, _ = x.shape
-        if t % self.nbins:
-            raise ValueError(f"T={t} is not a multiple of {self.nbins}")
-        nw = t // self.nbins
-        uw = correction_operand(x, hist, self.nbins, self.k, self.pp)
-        spec = fir_fft_fused(x.reshape(c * nw, self.nbins, 2).contiguous(),
-                             uw, self.H, self.gt)
-        return (spec.reshape(c, nw, self.nbins, 2),
-                x[:, t - (self.k - 1):].contiguous())
+        new_hist [C, K-1, 2]) by :func:`one_pass_step`. T must be a
+        multiple of nbins."""
+        return one_pass_step(x, hist, self.H, self.gt, self.k)
 
     run = forward
 
 
-def make_fused_chain(taps, nbins: int, pp: int = 64, device=None):
+def make_fused_chain(taps, nbins: int, pp: int = ONE_PASS_PP, device=None):
     """The counterpart of ``make_fused_pallas_chain``: a
     :class:`FusedFirFftChain` whose ``run(x, hist)`` returns (spectra,
     new_hist)."""

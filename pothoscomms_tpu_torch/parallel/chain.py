@@ -2,12 +2,17 @@
 float32 tensors with an explicit carry: the port of the FIR -> FFT part
 of the JAX package's ``parallel/chain.py``.
 
-Three formulations, chosen by :class:`FirFftChain` with the JAX
-package's conditions:
+Four formulations, chosen by :class:`FirFftChain` by shape:
 
-- the combined FIR*DFT operator (the main path): each window and the
-  ``prev_pad`` samples before it, times the stacked ``[G1; G0]``
-  operator, in one complex product on the K1 kernel;
+- the one-pass step (the main path; not in the JAX package's
+  ``fir_fft_chain``): each window's FFT times H plus the transformed
+  circular correction, in one launch of the K3 kernel
+  (``kernels/fir_fft_fused.py``), where its contract holds: decim == 1,
+  nbins == 1024, 1 < K <= 65 and the block a multiple of nbins;
+- elsewhere the JAX package's three, with its conditions: the combined
+  FIR*DFT operator, each window and the ``prev_pad`` samples before it
+  times the stacked ``[G1; G0]`` operator, in one complex product on the
+  K1 kernel;
 - the block-Toeplitz matmul FIR (K1) followed by the FFT (K2);
 - the ``conv1d`` FIR, with decimation, followed by the FFT (K2).
 
@@ -35,6 +40,8 @@ from torch import nn
 
 from pothoscomms_tpu_torch.core import placement
 from pothoscomms_tpu_torch.kernels.cgemm import cgemm
+from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
+    ONE_PASS_PP, fused_chain_consts, one_pass_step)
 from pothoscomms_tpu_torch.parallel import cplx
 from pothoscomms_tpu_torch.parallel.fft import fft_planar
 from pothoscomms_tpu_torch.parallel.profiling import annotate
@@ -388,12 +395,16 @@ def fir_fft_circ_step(x, hist, Hp, gcr, gci, nbins: int, k: int):
 class FirFftChain(nn.Module):
     """FIR -> windowed FFT over [C, T, 2] blocks with the K-1 sample carry.
 
-    The formulation follows the JAX package's ``fir_fft_chain``: the
-    combined FIR*DFT operator when decim == 1, 1 < K <= prev_pad + 1 and
-    ``block`` is a multiple of ``nbins`` (prev_pad = min(128, nbins));
-    else the Toeplitz matmul FIR when decim == 1, K <= 128 and ``block``
-    is a multiple of 128; else the conv FIR. The operators are buffers on
-    ``device`` (the card unless the caller names another).
+    The formulation (``form``) follows from the shapes: the one-pass step
+    on K3 where its contract holds, decim == 1, nbins == 1024,
+    1 < K <= ONE_PASS_PP + 1 and ``block`` a multiple of ``nbins`` (H and
+    gt from :func:`fused_chain_consts`). Elsewhere it follows the JAX
+    package's ``fir_fft_chain``: the combined FIR*DFT operator when
+    decim == 1, 1 < K <= prev_pad + 1 and ``block`` is a multiple of
+    ``nbins`` (prev_pad = min(128, nbins)); else the Toeplitz matmul FIR
+    when decim == 1, K <= 128 and ``block`` is a multiple of 128; else
+    the conv FIR. The operators are buffers on ``device`` (the card unless
+    the caller names another).
     """
 
     def __init__(self, taps, nbins: int, block: int, decim: int = 1,
@@ -402,7 +413,12 @@ class FirFftChain(nn.Module):
         taps = np.asarray(taps)
         self.nbins, self.k, self.decim = nbins, len(taps), decim
         self.prev_pad = min(128, nbins)
-        if decim == 1 and 1 < self.k <= self.prev_pad + 1 \
+        if decim == 1 and nbins == 1024 and 1 < self.k <= ONE_PASS_PP + 1 \
+                and block % nbins == 0:
+            self.form = "one_pass"
+            H, gt = fused_chain_consts(taps, nbins, ONE_PASS_PP)
+            ops = dict(H=H, gt=gt)
+        elif decim == 1 and 1 < self.k <= self.prev_pad + 1 \
                 and block % nbins == 0:
             self.form = "combined"
             gr, gi = stack_combined_operators(*combined_fir_fft_operators(
@@ -425,6 +441,8 @@ class FirFftChain(nn.Module):
         [C, T//decim//nbins, nbins, 2], carry), inside the span
         ``pc.fir_fft.<form>``."""
         with annotate(self.span):
+            if self.form == "one_pass":
+                return one_pass_step(x, carry, self.H, self.gt, self.k)
             if self.form == "combined":
                 return fir_fft_combined_step(x, carry, self.gr, self.gi,
                                              self.nbins, self.k,

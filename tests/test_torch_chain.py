@@ -218,10 +218,13 @@ def _oracle(x_steps, taps, nb, decim=1):
 
 
 @pytest.mark.parametrize("k,nb,decim,form", [
-    (64, 1024, 1, "combined"),
+    (64, 1024, 1, "one_pass"),
     (100, 64, 1, "toeplitz"),   # nbins < 128 with long taps
     (200, 1024, 1, "conv"),     # K > 129
     (64, 1024, 2, "conv"),      # decimation
+    (65, 1024, 1, "one_pass"),  # K - 1 = pp, the one-pass step's limit
+    (66, 1024, 1, "combined"),  # K - 1 > pp
+    (64, 512, 1, "combined"),   # nbins != 1024
 ])
 def test_fir_fft_chain_three_steps_matches_jax(k, nb, decim, form):
     rng = np.random.default_rng(29)

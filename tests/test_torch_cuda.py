@@ -269,9 +269,12 @@ def test_fused_chain_on_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("k,nb,decim,form", [
-    (64, 1024, 1, "combined"), (100, 64, 1, "toeplitz"),
-    (200, 1024, 1, "conv"), (64, 1024, 2, "conv")])
+    (64, 1024, 1, "one_pass"), (100, 64, 1, "toeplitz"),
+    (200, 1024, 1, "conv"), (64, 1024, 2, "conv"),
+    (65, 1024, 1, "one_pass"), (66, 1024, 1, "combined"),
+    (64, 512, 1, "combined")])
 def test_chain_on_card_matches_cpu(dev, k, nb, decim, form):
+    """Each step of the one-pass form is one K3 launch and no K1 launch."""
     rng = np.random.default_rng(k + nb)
     C, T = 8, 4096
     taps = (rng.normal(size=k) + 1j * rng.normal(size=k)) / k
@@ -280,9 +283,12 @@ def test_chain_on_card_matches_cpu(dev, k, nb, decim, form):
                                      device="cpu")
     assert run_c.form == run_h.form == form
     for _ in range(3):
-        x = _normal(rng, C, T, 2)
-        spec_c, carry_c = run_c(x.to(dev), carry_c)
-        spec_h, carry_h = run_h(x, carry_h)
+        x = _normal(rng, C, T, 2).to(dev)
+        k3, k1 = fir_fft_fused.launches, cgemm.launches
+        spec_c, carry_c = run_c(x, carry_c)
+        if form == "one_pass":
+            assert (fir_fft_fused.launches - k3, cgemm.launches - k1) == (1, 0)
+        spec_h, carry_h = run_h(x.cpu(), carry_h)
         assert _rel(spec_c.cpu(), spec_h) < 1e-5
         assert torch.equal(carry_c.cpu(), carry_h)
 

@@ -6,7 +6,7 @@ does. These tests hold the off path to building nothing, the spans of the
 block runtime, the chain entries and the kernel wrappers to their names
 and their nesting, and ``FusedSegment``'s ``h2d_bytes`` and
 ``pull_time_s`` to what a pull moves. The file imports no JAX; its card
-test runs on a card with
+tests run on a card with
 
     python -m pytest tests/test_torch_tracing.py --noconftest -q
 """
@@ -152,14 +152,17 @@ def test_fm_compile_chain_spans_in_order():
         "pc.chain.EnvelopeDetector"]
 
 
-def test_fir_fft_chain_span_holds_the_operand_span():
-    run, carry = chain.fir_fft_chain(np.ones(4) / 4, 64, 2, 256,
+@pytest.mark.parametrize("nb,form,operand", [
+    (64, "combined", "combined_operand"),
+    (1024, "one_pass", "correction_operand")])
+def test_fir_fft_chain_span_holds_the_operand_span(nb, form, operand):
+    run, carry = chain.fir_fft_chain(np.ones(4) / 4, nb, 2, 4 * nb,
                                      device="cpu")
+    assert run.form == form
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        run(torch.zeros(2, 256, 2), carry)
+        run(torch.zeros(2, 4 * nb, 2), carry)
     spans = host_spans(prof)
-    assert [s[0] for s in spans] == ["pc.fir_fft.combined",
-                                     "pc.op.combined_operand"]
+    assert [s[0] for s in spans] == ["pc.fir_fft." + form, "pc.op." + operand]
     assert inside(spans, spans[0]) == [spans[1]]
 
 
@@ -184,7 +187,10 @@ def test_h2d_bytes_counts_eight_bytes_a_complex_sample_pulled(n):
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card (the kernels have no CPU mode)")
 def test_card_fir_fft_chain_step_records_the_k1_span_host_side_only():
-    run, carry = chain.fir_fft_chain(np.ones(64) / 64, 1024, 4, 8192)
+    """K = 66 at 1024 bins: past the one-pass step's K - 1 <= 64, so the
+    chain keeps the combined form on K1."""
+    run, carry = chain.fir_fft_chain(np.ones(66) / 66, 1024, 4, 8192)
+    assert run.form == "combined"
     x = torch.randn(4, 8192, 2, device="cuda")
     run(x, carry)
     torch.cuda.synchronize()
@@ -200,4 +206,29 @@ def test_card_fir_fft_chain_step_records_the_k1_span_host_side_only():
     device = [e.name for e in prof.events()
               if e.device_type == DeviceType.CUDA]
     assert any("cgemm" in n for n in device)
+    assert not [n for n in device if n.startswith("pc.")]
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card (the kernels have no CPU mode)")
+def test_card_fir_fft_chain_step_records_the_k3_span_host_side_only():
+    run, carry = chain.fir_fft_chain(np.ones(64) / 64, 1024, 4, 8192)
+    assert run.form == "one_pass"
+    x = torch.randn(4, 8192, 2, device="cuda")
+    run(x, carry)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(x, carry)
+        torch.cuda.synchronize()
+    spans = host_spans(prof)
+    outer = [s for s in spans if s[0] == "pc.fir_fft.one_pass"]
+    assert len(outer) == 1
+    assert [s[0] for s in inside(spans, outer[0])] == [
+        "pc.op.correction_operand", "pc.kernel.fir_fft_fused"]
+    device = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    assert any("fir_fft_fused" in n for n in device)
+    assert not any("cgemm" in n for n in device)
     assert not [n for n in device if n.startswith("pc.")]
