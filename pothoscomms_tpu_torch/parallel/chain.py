@@ -31,6 +31,7 @@ chain, :func:`freq_demod_planar`.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 
 import numpy as np
@@ -96,14 +97,26 @@ def fir_multichannel(x: torch.Tensor, history: torch.Tensor,
     x: [C, T, 2]; history: [C, K-1, 2] carry from the previous block;
     kernel: [2, 2, K] from :func:`complex_fir_kernel`.
     Returns (y [C, ceil(T/decim), 2], new_history [C, K-1, 2]).
+
+    The ``cat``, the convolution and the carry run inside the span
+    ``pc.op.conv_fir``; ``fir_multichannel.calls`` counts the calls and
+    ``fir_multichannel.by_shape`` each (C, T, K, decim).
     """
+    c, t, _ = x.shape
     k = kernel.shape[-1]
-    xin = torch.cat([history, x], dim=1)               # [C, K-1+T, 2]
-    with _exact_f32_conv(x):
-        out = F.conv1d(xin.permute(0, 2, 1), kernel, stride=decim)
-    y = out.permute(0, 2, 1)                           # [C, T', 2]
-    new_hist = xin[:, xin.shape[1] - (k - 1):].contiguous()
+    with annotate("pc.op.conv_fir"):
+        xin = torch.cat([history, x], dim=1)           # [C, K-1+T, 2]
+        with _exact_f32_conv(x):
+            out = F.conv1d(xin.permute(0, 2, 1), kernel, stride=decim)
+        y = out.permute(0, 2, 1)                       # [C, T', 2]
+        new_hist = xin[:, xin.shape[1] - (k - 1):].contiguous()
+    fir_multichannel.calls += 1
+    fir_multichannel.by_shape[(c, t, k, decim)] += 1
     return y, new_hist
+
+
+fir_multichannel.calls = 0
+fir_multichannel.by_shape = collections.Counter()
 
 
 def fir_toeplitz_matrices(taps, block: int = 128):
@@ -405,11 +418,19 @@ class FirFftChain(nn.Module):
     when decim == 1, K <= 128 and ``block`` is a multiple of 128; else
     the conv FIR. The operators are buffers on ``device`` (the card unless
     the caller names another).
+
+    With decim > 1 the block must be a multiple of decim * nbins, so that
+    every block starts on the decimation's phase and ends on a window.
     """
 
     def __init__(self, taps, nbins: int, block: int, decim: int = 1,
                  device=None):
         super().__init__()
+        if decim > 1 and block % (decim * nbins):
+            raise ValueError(
+                f"a block of {block} samples is not a multiple of decim * "
+                f"nbins = {decim * nbins}: the next block would start off "
+                f"the decimation's phase")
         taps = np.asarray(taps)
         self.nbins, self.k, self.decim = nbins, len(taps), decim
         self.prev_pad = min(128, nbins)
