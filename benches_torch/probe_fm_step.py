@@ -13,11 +13,16 @@ and T = 16384 (both blocked at ``blocks.filter.ENVELOPE_BLOCK``). For each T it 
 CUDA events (3 repetitions, each the median of 10 calls after a quarter
 second of warm-up):
 
-- one chain step;
-- the same step with the DC removal's prefix sums in float32, the JAX
-  package's formulation, in turns with the float64 one (float64,
-  float32, float32, float64): what the port's accuracy repair costs;
-- each block's core alone on the input the chain gives it;
+- one chain step (the discriminator and DC removal as one F1 launch,
+  ``kernels/fm_demod_dc``, where the pairing rule takes them);
+- F1 alone on the chain's input and carries, beside its plain version
+  (the two single cores' torch ops), in turns (F1, plain, plain, F1),
+  and F1's device time from ``torch.profiler``;
+- the plain version with the DC removal's prefix sums in float32, the
+  JAX package's formulation, in turns with the float64 one (float64,
+  float32, float32, float64): what the port's accuracy repair costs
+  there;
+- each block's single core alone on the input the chain gives it;
 - only with ``--envelope-blocks``, the measurement that chose
   ``ENVELOPE_BLOCK``: the step and the envelope block's core with that
   constant set to each length given, in turns (up the list, then down),
@@ -59,6 +64,8 @@ def main() -> int:
         return 1
     from pothoscomms_tpu_torch import BlockRegistry
     from pothoscomms_tpu_torch.blocks import filter as bfilter
+    from pothoscomms_tpu_torch.kernels.fm_demod_dc import (fm_demod_dc,
+                                                           fm_demod_dc_plain)
     from pothoscomms_tpu_torch.ops import filter as fops
     from pothoscomms_tpu_torch.parallel.compiler import compile_chain
 
@@ -128,13 +135,28 @@ def main() -> int:
         cores = [b.device_core(C, device=dev) for b in blocks]
         r = {}
         r["step_ms"] = timed(lambda: step(x, carry))
+        pair = (x, carry[0], carry[1], 64, 2)
+        f1_ab = {"F1": [], "plain": []}
+        for which in ("F1", "plain", "plain", "F1"):
+            fn = fm_demod_dc if which == "F1" else fm_demod_dc_plain
+            f1_ab[which] += timed(lambda: fn(*pair), reps=1)
+        r["pair_ab_ms"] = f1_ab
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fm_demod_dc(*pair)
+            torch.cuda.synchronize()
+        r["f1_device_ms"] = sum(
+            e.device_time_total for e in prof.key_averages()
+            if "fm_demod_dc" in e.key) / 10 / 1e3
+        r["f1_bound_ms"] = C * T * 12 / 3.35e9
         ab = {"float64": [], "float32": []}
         for which in ("float64", "float32", "float32", "float64"):
             ctx = f32_prefix_sums() if which == "float32" \
                 else contextlib.nullcontext()
             with ctx:
-                ab[which] += timed(lambda: step(x, carry), reps=1)
-        r["prefix_sums_ab_ms"] = ab
+                ab[which] += timed(lambda: fm_demod_dc_plain(*pair), reps=1)
+        r["plain_prefix_sums_ab_ms"] = ab
         xin = x
         r["cores_ms"] = {}
         for blk, (c0, core) in zip(blocks, cores):
@@ -191,8 +213,10 @@ def main() -> int:
 
     print(card)
     for T, r in res["by_T"].items():
-        print(f"T={T} step_ms {r['step_ms']}, prefix sums A/B "
-              f"{r['prefix_sums_ab_ms']}, cores {r['cores_ms']}, device "
+        print(f"T={T} step_ms {r['step_ms']}, F1 / plain pair "
+              f"{r['pair_ab_ms']}, F1 on the card {r['f1_device_ms']:.4f} "
+              f"ms (bound {r['f1_bound_ms']:.4f}), plain prefix sums A/B "
+              f"{r['plain_prefix_sums_ab_ms']}, cores {r['cores_ms']}, device "
               f"busy {r['device_busy_share']:.3f} of {r['trace_wall_us']:.0f}"
               f" us, peak {r['peak_bytes_one_step']} B")
         for blk_len, e in r["by_envelope_block"].items():

@@ -9,7 +9,7 @@ Phases, one or more lines each:
      fir_fft_chain, make_fused_chain, compile_chain, the *_from_numpy
      converters, a scrambler's fused core, make_sync_search,
      make_hamming_profile, make_channel_search) lands on the card;
-  2. nvcc build of the port's seven kernels from
+  2. nvcc build of the port's eight kernels from
      pothoscomms_tpu_torch/csrc/, one nvcc per source, all started
      together;
   3. K1 (cgemm) against its plain PyTorch version on the card, at shapes
@@ -85,10 +85,14 @@ Phases, one or more lines each:
      envelope(10, 40)], 256) at T = 131072 for three chained steps, two
      at T = 16384 (both blocked envelopes) and two at T = 3000 (not whole
      blocks: the unblocked scan): a phase random walk
-     with a carrier offset; channels 0 and 255 of step 2 against a
-     float64 numpy oracle seeded with step 1's tail (atol 2e-3), every
-     step against the same chain on E1's plain version, two half-steps
-     against one step, and the step's time;
+     with a carrier offset; the discriminator and DC removal as one F1
+     launch a step (fm_demod_dc), F1 held against its plain version at
+     every shape the chain launched it at (8 float32 ulps of max |y|,
+     the last sample exact) and timed alone at [256, 131072] beside its
+     bound (bytes) and its plain version; channels 0 and 255 of step 2
+     against a float64 numpy oracle seeded with step 1's tail (atol
+     2e-3), every step against the same chain on E1's plain version, two
+     half-steps against one step, and the step's time;
  15. path "fm_block_api": feeder -> /comms/freq_demod ->
      /comms/dc_removal (32, 2) -> /comms/envelope_detector (4, 16) ->
      collector on Topology(device="cuda:0"), fed 2^26 + 17 samples (a
@@ -224,8 +228,8 @@ Phases, one or more lines each:
      (0) and collectives (1) counted; (d) path "time_sharded_resampler"
      at config #3's 16 channels (3/2, 60 taps, T = 2^19) against the
      one-device polyphase; (e) path "fm_chain_sharded":
-     compile_chain_sharded on the FM chain at [256, 131072], E1 blocked,
-     equal to compile_chain bit for bit; (f) path "sharded_link":
+     compile_chain_sharded on the FM chain at [256, 131072], F1 and E1
+     (blocked) once a step, equal to compile_chain bit for bit; (f) path "sharded_link":
      run_sharded_link at 256 channels x 4000-bit frames (noise 0.001),
      S1 once at [256, 32768], every channel exact, the arrays equal to
      [21]'s run_link bit for bit and within the float64 oracle's bounds;
@@ -259,7 +263,9 @@ each tensor-core launch also launches the operator kernel,
 resampler's shapes: its ms, on the card, its plain version's, one complex64
 torch.matmul's and its bound); S1's entry adds ``by_shape`` (the link's,
 FrameSync's and [28]'s sharded link's launch shapes: launches, the
-compiled kernel's plan, ms, on the card, bound); every K1 launch of the
+compiled kernel's plan, ms, on the card, bound); F1's entry
+(fm_demod_dc) adds ``device_ms`` and ``launch_shapes`` (C, T, D, cascade
+of each launch of [14]); every K1 launch of the
 main path, the block API, the split step, the resampler paths and the
 bench suite must go to its tensor-core variant.
 """
@@ -1059,9 +1065,10 @@ def phase_27(c, T=N27, CL=256):
               f"{wall_e:.4f} s, a step {ms_e:.3f} ms; equal to compile_chain "
               f"bit for bit {same_e}; launches "
               f"{launches['fm_chain_sharded']}")
-        check(same_e and launches["fm_chain_sharded"]["envelope"] == 2,
+        check(same_e and launches["fm_chain_sharded"]["envelope"] == 2
+              and launches["fm_chain_sharded"]["fm_demod_dc"] == 2,
               "[27](e) the sharded FM chain differs from compile_chain or "
-              "did not launch E1 once a step")
+              "did not launch F1 and E1 once a step")
         summary["e"] = {"bit_for_bit": same_e, "step_ms": ms_e}
         del xf, ys_e, ys_1
 
@@ -1297,6 +1304,8 @@ def main() -> int:
         variant)
     from pothoscomms_tpu_torch.kernels.envelope import (envelope_rows,
                                                         envelope_rows_plain)
+    from pothoscomms_tpu_torch.kernels.fm_demod_dc import (fm_demod_dc,
+                                                           fm_demod_dc_plain)
     from pothoscomms_tpu_torch.kernels.sync_search import (
         card_plan, ops_per_offset, sync_search, sync_search_plain, work)
     from pothoscomms_tpu_torch.kernels.layout_move import (
@@ -1312,6 +1321,7 @@ def main() -> int:
         carry_from_numpy, combined_fir_fft_operators, fir_fft_chain,
         fir_fft_combined_step, fir_multichannel, make_split_step,
         operators_from_numpy, split_operand, stack_combined_operators)
+    from pothoscomms_tpu_torch.parallel import compiler as compiler_mod
     from pothoscomms_tpu_torch.parallel.compiler import (
         chain_carry_from_numpy, compile_chain)
     from pothoscomms_tpu_torch.parallel.fft import fft_planar
@@ -1414,7 +1424,7 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     sources = ("cgemm", "fft", "fir_fft_fused", "stream_scale",
-               "layout_move", "envelope", "sync_search")
+               "layout_move", "envelope", "sync_search", "fm_demod_dc")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load, sources))
     print(f"[2] built {', '.join(s + '.cu' for s in sources)} with "
@@ -1551,7 +1561,7 @@ def main() -> int:
                 "fft_c2c": fft_c2c,
                 "fir_fft_fused": fir_fft_fused, "stream_scale": stream_scale,
                 "layout_move": layout_move, "envelope": envelope_rows,
-                "sync_search": sync_search}
+                "sync_search": sync_search, "fm_demod_dc": fm_demod_dc}
 
     def zero_counts():
         for w in wrappers.values():
@@ -2180,9 +2190,17 @@ def main() -> int:
     xsu = fm_steps(CF, TU, 2, 16)
     stepu, carryu = compile_chain(fm_blocks(DF, CASC, ATT, REL), CF,
                                   device=dev)
+    f1_launched = []
+
+    def note_f1(args, out):
+        """Notes (C, T, D, cascade) of an F1 call made by compile_chain."""
+        x, _, _, d, casc = args
+        f1_launched.append((x.shape[0], x.shape[1], int(d), int(casc)))
+
     torch.cuda.synchronize()
     zero_counts()
-    with watched(fops, "envelope_rows", note_e1):
+    with watched(fops, "envelope_rows", note_e1), \
+            watched(compiler_mod, "fm_demod_dc", note_f1):
         carries_fm, ys_fm = [carry_fm], []
         for x in xf:
             y, c = step_fm(x, carries_fm[-1])
@@ -2204,6 +2222,32 @@ def main() -> int:
           f"release {REL}: launches {launches_fm}")
     check(launches_fm["envelope"] >= 7,
           "the FM chain did not launch envelope_rows each step")
+    check(launches_fm["fm_demod_dc"] == 7 and len(f1_launched) == 7,
+          f"the FM chain launched F1 {launches_fm['fm_demod_dc']} times "
+          f"({len(f1_launched)} noted), not once a step")
+    # F1 at every shape the chain launched it at, against its plain
+    # version (the two cores' ops) on fresh inputs and nonzero carries:
+    # within 8 float32 ulps of max |y| (window sums from float64 sums in
+    # another order), the discriminator's carry exact
+    f1_abs, f1_tol = 0.0, 8 * 2.0 ** -24
+    for n_f1, shape in enumerate(sorted(set(f1_launched))):
+        c_, t_, d_, casc_ = shape
+        x_ = fm_steps(c_, t_, 1, 40 + n_f1)[0]
+        last_ = x_[:, -1:].flip(1).contiguous()
+        hists_ = torch.from_numpy(np.random.default_rng(40 + n_f1).normal(
+            0.0, 0.1, (casc_, c_, d_)).astype(np.float32)).to(dev)
+        yk, lk, hk = fm_demod_dc(x_, last_, hists_, d_, casc_)
+        yp, lp, hp = fm_demod_dc_plain(x_, last_, hists_, d_, casc_)
+        torch.cuda.synchronize()
+        d = (yk - yp).abs().max().item()
+        dh = (hk - hp).abs().max().item()
+        f1_abs = max(f1_abs, d)
+        ok = (d <= f1_tol * yp.abs().max().item() and torch.equal(lk, lp)
+              and dh <= f1_tol * hp.abs().max().item())
+        print(f"[14] fm_demod_dc at [{c_},{t_}] D={d_} x{casc_} vs its "
+              f"plain version: max|d| {d:.3e}, histories {dh:.3e} (8 ulps "
+              f"of max), last sample exact: {ok}")
+        check(ok, f"fm_demod_dc at {shape} disagrees with its plain version")
     check(len(e1_launched) == launches_fm["envelope"],
           f"{len(e1_launched)} E1 calls noted, {launches_fm['envelope']} "
           f"launches counted")
@@ -2255,6 +2299,19 @@ def main() -> int:
     check(d <= 2e-3 and dc_ <= 2e-3, "two half-steps differ from one step")
     fm_ms = median_ms(lambda: step_fm(xf[0], carry_fm))
     fm16_ms = median_ms(lambda: step16(xs16[0], carry16))
+    # F1 alone at the chain's main launch, beside its bound and the plain
+    # version; the histories read and written once too
+    f1_pool = [(x, carry_fm[0], carry_fm[1], DF, CASC) for x in xf]
+    f1_bound = bound(CF * TF * (8 + 4) + 2 * CF * (8 + CASC * DF * 4), 0)
+    f1_ms = event_ms(fm_demod_dc, f1_pool)
+    f1_device_ms = device_ms(fm_demod_dc, f1_pool, per_call=1,
+                             floor_ms=f1_bound[0])
+    f1_plain_ms = median_ms(lambda: fm_demod_dc_plain(*f1_pool[0]))
+    print(f"[14] on {card}: fm_demod_dc [{CF},{TF}] D={DF} x{CASC} "
+          f"{f1_ms:.4f} ms ({f4(f1_device_ms)} on the card), bound "
+          f"{f1_bound[0]:.4f} ms by {f1_bound[1]} "
+          f"({share(f1_bound[0], f1_device_ms)} of it), plain version "
+          f"{f1_plain_ms:.3f} ms")
     fm_bytes = CF * TF * (8 + 4)
     p1_best = max(p1[f"tb{tb}_GBs"] for tb in probe_stream_ceiling.TILES)
     print(f"[14] on {card}: fm_chain step T={TF} {fm_ms:.3f} ms "
@@ -2263,7 +2320,7 @@ def main() -> int:
           f"P1's best {p1_best:.1f}); T={TS} {fm16_ms:.3f} ms "
           f"({CF * TS / fm16_ms / 1e3:.1f} Msamples/s)")
     del xf, xs16, xsu, ys_fm, ys16, ysu, carries_fm, carries16, carriesu
-    del parts
+    del parts, f1_pool
 
     # -- 15. path "fm_block_api": the FM blocks on Topology(device) -------
     DB, CASCB, ATTB, RELB = 32, 2, 4.0, 16.0
@@ -3687,7 +3744,8 @@ def main() -> int:
         "stream_scale": bound(4 * 32768 * 1024 * 4, 2 * 32768 * 1024),
         "layout_move": bound(2 * 4096 * 1024 * 4, 0),
         "envelope": e1_bound,
-        "sync_search": s1_bound}
+        "sync_search": s1_bound,
+        "fm_demod_dc": f1_bound}
     # name: (source, TPU kernel, max |d|, ms, plain ms, one library call's
     # ms or None where no single PyTorch call computes the function)
     measured = {
@@ -3708,7 +3766,12 @@ def main() -> int:
                      e1_plain_ms, None),
         "sync_search": ("sync_search.cu", "pothoscomms_tpu/ops/framing.py:37"
                         " (an XLA program, not a Pallas kernel)", s1_abs,
-                        s1_ms, s1_plain_ms, None)}
+                        s1_ms, s1_plain_ms, None),
+        "fm_demod_dc": ("fm_demod_dc.cu", "pothoscomms_tpu/parallel/chain.py"
+                        " freq_demod_planar and the DC core of pothoscomms_tpu"
+                        "/blocks/filter.py DCRemoval.device_core (XLA ops, "
+                        "not a Pallas kernel)", f1_abs, f1_ms, f1_plain_ms,
+                        None)}
     kernels = []
     for name, (src, where, err, ms, plain_ms, lib_ms) in measured.items():
         paths = {p: c[name] for p, c in by_path.items()}
@@ -3746,6 +3809,8 @@ def main() -> int:
     kernels[5]["ms_by_case"] = e1_times
     kernels[5]["device_ms_by_case"] = e1_device
     kernels[6]["device_ms"] = s1_device_ms
+    kernels[7]["device_ms"] = f1_device_ms
+    kernels[7]["launch_shapes"] = sorted(set(f1_launched))
     kernels[6]["oracle_agreement"] = s1_oracle
     # S1 at the link's and FrameSync's launch shapes
     kernels[6]["by_shape"] = s1_by_shape

@@ -731,9 +731,9 @@ class DCRemoval(Block):
 
     def device_core(self, channels: int, device=None):
         """Fused-chain core: moving-average cascade + delayed-input
-        subtraction (float32, cumsum formulation, the prefix sums in
-        float64: ``ops/filter.window_sum``) on ``device`` (default: the
-        block's); carry = per-stage history [cascade, C, D(, 2)]."""
+        subtraction (``ops/filter.dc_removal_rows``: float32, cumsum
+        formulation, the prefix sums in float64) on ``device`` (default:
+        the block's); carry = per-stage history [cascade, C, D(, 2)]."""
         d, casc = self._average_size, self._cascade_size
         shape = (casc, channels, d, 2) if self.dtype.is_complex \
             else (casc, channels, d)
@@ -741,17 +741,8 @@ class DCRemoval(Block):
         carry0 = torch.zeros(shape, dtype=torch.float32, device=dev)
 
         def step(carry, x):
-            cur = x
-            hists = []
-            delayed = None
-            for s in range(casc):
-                ext = torch.cat([carry[s], cur], dim=1)
-                avg = fops.window_sum(ext, d, dim=1) / d
-                hists.append(ext[:, -d:])
-                if s == 0:
-                    delayed = ext[:, 1:1 + x.shape[1]]
-                cur = avg
-            return torch.stack(hists), delayed - cur
+            y, hists = fops.dc_removal_rows(x, carry, d, casc)
+            return hists, y
 
         return carry0, step
 

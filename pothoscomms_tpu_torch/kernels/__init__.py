@@ -6,6 +6,10 @@
   one-pass chain built on it.
 - :mod:`.envelope`: E1, the attack/release envelope follower (the JAX
   package's envelope scans; not a Pallas port).
+- :mod:`.fm_demod_dc`: F1, the FM discriminator and the DC-removal
+  cascade in one pass (the JAX package's XLA ops for the two cores; not
+  a Pallas port); ``parallel/compiler.compile_chain`` takes it for a
+  FreqDemod followed by a float32 DCRemoval.
 - :mod:`.sync_search`: S1, the frame-sync search over every offset of
   every channel (the JAX package's XLA search program; not a Pallas
   port).

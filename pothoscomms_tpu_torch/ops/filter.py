@@ -408,6 +408,27 @@ def dc_removal(x_acc: torch.Tensor, hists: torch.Tensor, depth: int,
     return delayed - cur, torch.stack(new_hists)
 
 
+def dc_removal_rows(x: torch.Tensor, hists: torch.Tensor, depth: int,
+                    cascade: int):
+    """The fused DC removal over rows (``DCRemoval.device_core``): x
+    [C, T(, 2)] float32, hists [cascade, C, depth(, 2)], each stage's last
+    ``depth`` inputs. Each stage is a moving average of width ``depth``
+    over [history, input] (:func:`window_sum`, so in float64, then / depth
+    in float32); returns (y, new_hists) with y = the input delayed by
+    depth - 1 minus the last stage's average (``dc_removal``'s algebra)."""
+    cur = x
+    new_hists = []
+    delayed = None
+    for s in range(cascade):
+        ext = torch.cat([hists[s], cur], dim=1)
+        avg = window_sum(ext, depth, dim=1) / depth
+        new_hists.append(ext[:, -depth:])
+        if s == 0:
+            delayed = ext[:, 1:1 + x.shape[1]]
+        cur = avg
+    return delayed - cur, torch.stack(new_hists)
+
+
 # ---------------------------------------------------------------------- #
 # Envelope follower (the E1 kernel on CUDA, kernels/envelope.py)
 # ---------------------------------------------------------------------- #

@@ -23,6 +23,15 @@ Every ``device_core`` of the port composes here: the FIR (1:1 and
 rational), the IIR filter, the FFT, the FM discriminator, DC removal and
 the envelope follower. :func:`compile_chain_sharded` runs the same step on
 one rank's channel shard of a ``parallel/mesh.Mesh``.
+
+One pair of adjacent blocks takes one core: a ``FreqDemod`` on
+complex_float32 directly followed by a ``DCRemoval`` on float32 runs as
+F1 (``kernels/fm_demod_dc``, one pass over the block; its plain version,
+the two cores' ops, on the CPU) wherever F1 takes the DC removal's
+average D and cascade and the block's T (:func:`fm_pair`,
+``fm_demod_dc.fits``). The rule reads only the blocks' types, dtypes, D,
+cascade and T; elsewhere, and at a T below D, the two single cores run.
+The carries keep one entry per block either way.
 """
 
 from __future__ import annotations
@@ -33,9 +42,54 @@ import numpy as np
 import torch
 
 from pothoscomms_tpu_torch.core import placement
+from pothoscomms_tpu_torch.core.dtypes import DType
+from pothoscomms_tpu_torch.kernels.fm_demod_dc import fits, fm_demod_dc
 from pothoscomms_tpu_torch.parallel import cplx
 from pothoscomms_tpu_torch.parallel.chain import operators_from_numpy
 from pothoscomms_tpu_torch.parallel.profiling import annotate
+
+
+def fm_pair(first, second):
+    """(D, cascade) where ``first``, ``second`` run as one F1 core at a
+    block of T >= D samples: a FreqDemod on complex_float32 directly
+    followed by a DCRemoval on float32 whose average D and cascade F1
+    takes; else None."""
+    from pothoscomms_tpu_torch.blocks.demod import FreqDemod
+    from pothoscomms_tpu_torch.blocks.filter import DCRemoval
+
+    if not (type(first) is FreqDemod and type(second) is DCRemoval
+            and first.dtype == DType.parse("complex_float32")
+            and second.dtype == DType.parse("float32")):
+        return None
+    d, casc = second.get_average_size(), second.get_cascade_size()
+    return (d, casc) if fits(d, casc) else None
+
+
+def _units(pairs, T: int):
+    """The cores of a step of T samples, in order: (i, (D, cascade)) where
+    blocks i and i + 1 run as one F1 core, (i, None) where block i runs
+    alone; ``pairs[i]`` is :func:`fm_pair` of blocks i and i + 1, and
+    ``pairs`` holds one entry a block (None for the last)."""
+    i = 0
+    while i < len(pairs):
+        pair = pairs[i]
+        if pair is not None and fits(*pair, T):
+            yield i, pair
+            i += 2
+        else:
+            yield i, None
+            i += 1
+
+
+def _pairs(blocks: Sequence[Any]) -> list:
+    return [fm_pair(a, b) for a, b in zip(blocks, blocks[1:])] \
+        + [None] * min(1, len(blocks))
+
+
+def paired(blocks: Sequence[Any], T: int) -> list:
+    """Indices i where blocks i and i + 1 run as one core in a step of T
+    samples, as :func:`compile_chain`'s step takes them."""
+    return [i for i, pair in _units(_pairs(blocks), T) if pair is not None]
 
 
 def compile_chain(blocks: Sequence[Any], channels: int, device=None):
@@ -43,7 +97,9 @@ def compile_chain(blocks: Sequence[Any], channels: int, device=None):
     ``device`` (default: each block's own, the card outside a topology).
 
     Returns (step, carry0): ``step(x, carry) -> (y, carry')``; each
-    block's core runs inside its span, ``pc.chain.<Class>``.
+    block's core runs inside its span, ``pc.chain.<Class>``, and the FM
+    pair's one core (:func:`fm_pair`) inside
+    ``pc.chain.FreqDemod+DCRemoval``.
     Raises TypeError for blocks that don't provide a device core.
     """
     cores = []
@@ -59,13 +115,22 @@ def compile_chain(blocks: Sequence[Any], channels: int, device=None):
         carry0, step = fn(channels, device=device)
         cores.append(step)
         carries.append(carry0)
+    pairs = _pairs(blocks)
+    pair_spans = [span + "+" + type(nxt).__name__
+                  for span, nxt in zip(spans, blocks[1:])]
 
     def chain_step(x, carry):
         new_carries = []
-        for step, c, span in zip(cores, carry, spans):
-            with annotate(span):
-                c2, x = step(c, x)
-            new_carries.append(c2)
+        for i, pair in _units(pairs, x.shape[1]):
+            if pair is None:
+                with annotate(spans[i]):
+                    c2, x = cores[i](carry[i], x)
+                new_carries.append(c2)
+            else:
+                with annotate(pair_spans[i]):
+                    x, last, hists = fm_demod_dc(x.contiguous(), carry[i],
+                                                 carry[i + 1], *pair)
+                new_carries += [last, hists]
         return x, tuple(new_carries)
 
     return chain_step, tuple(carries)

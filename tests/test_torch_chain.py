@@ -333,8 +333,8 @@ def test_package_imports_with_jax_blocked():
         "sys.modules['pothoscomms_tpu'] = None\n"
         "import pothoscomms_tpu_torch\n"
         "from pothoscomms_tpu_torch.kernels import (build, cgemm, fft,\n"
-        "    fir_fft_fused, envelope, layout_move, stream_scale,\n"
-        "    sync_search)\n"
+        "    fir_fft_fused, envelope, fm_demod_dc, layout_move,\n"
+        "    stream_scale, sync_search)\n"
         "from pothoscomms_tpu_torch.parallel import (chain, compiler, cplx,\n"
         "    distributed, dryrun, fft, link, mesh, profiling)\n"
         "from pothoscomms_tpu_torch import native\n"

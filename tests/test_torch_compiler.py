@@ -9,6 +9,9 @@ numpy.random.default_rng(seed). Tolerances: the numpy oracle within
 absolute on outputs of order 1 (the DC stages' cumulative sums are taken
 in another order; the follower is contractive, so the difference does
 not grow); carries within the same bound, the discriminator's exactly.
+The pairing rule (FreqDemod -> DCRemoval as one F1 core, its plain
+version on the CPU) gives the single cores' outputs and carries bit for
+bit.
 """
 
 import jax.numpy as jnp
@@ -20,6 +23,7 @@ import pothoscomms_tpu as jpkg
 import pothoscomms_tpu_torch as pkg
 from pothoscomms_tpu.parallel import compiler as jcompiler
 from pothoscomms_tpu_torch.kernels.envelope import envelope_rows
+from pothoscomms_tpu_torch.kernels.fm_demod_dc import fm_demod_dc
 from pothoscomms_tpu_torch.parallel import compiler
 
 torch.set_num_threads(1)
@@ -159,12 +163,120 @@ def test_compile_chain_on_cpu_launches_nothing_and_rejects_plain_blocks():
     from pothoscomms_tpu_torch.core.fixtures import CollectorSink
 
     before = envelope_rows.launches
+    f1_before = fm_demod_dc.launches
     step, carry = compiler.compile_chain(fm_blocks(pkg), 2, device="cpu")
     step(torch.zeros(2, 64, 2), carry)
     assert envelope_rows.launches == before  # CPU tensors: the twin
+    assert fm_demod_dc.launches == f1_before
     with pytest.raises(TypeError):
         compiler.compile_chain([CollectorSink("float32")], 2)
     env = fm_blocks(pkg)[2]
     env.set_lookahead(3)
     with pytest.raises(TypeError):
         compiler.compile_chain([env], 2)
+
+
+# ---------------------------------------------------------------------- #
+# the pairing rule: FreqDemod -> DCRemoval as one core (F1)
+# ---------------------------------------------------------------------- #
+def single_cores_step(blocks, C):
+    """The chain's cores composed one by one, as before the pairing rule:
+    (step, carry0)."""
+    made = [b.device_core(C, device="cpu") for b in blocks]
+
+    def step(x, carry):
+        out = []
+        for (_, core), c in zip(made, carry):
+            c2, x = core(c, x)
+            out.append(c2)
+        return x, tuple(out)
+
+    return step, tuple(c for c, _ in made)
+
+
+@pytest.mark.parametrize("T", [131072, 16384])
+def test_pairing_rule_takes_the_pair_at_the_cells_shapes(T):
+    """The FM bank's settings (D 64, cascade 2) at both cells' T."""
+    blocks = fm_blocks(pkg, 64, 2)
+    assert compiler.fm_pair(blocks[0], blocks[1]) == (64, 2)
+    assert compiler.paired(blocks, T) == [0]
+
+
+def _complex_dc_chain():
+    blocks = fm_blocks(pkg, 64, 2)
+    blocks[1] = pkg.BlockRegistry.make("/comms/dc_removal",
+                                       "complex_float32")
+    return blocks
+
+
+@pytest.mark.parametrize("make,T", [
+    (_complex_dc_chain, 4096),
+    (lambda: fm_blocks(pkg, 770, 2), 1 << 16),       # D beyond the halo
+    (lambda: fm_blocks(pkg, 64, 25), 4096),          # cascade beyond it
+    (lambda: fm_blocks(pkg, 64, 2), 63),             # T < D
+    (lambda: [fm_blocks(pkg)[i] for i in (0, 2, 1, 2)], 4096),  # between
+    (lambda: fm_blocks(pkg)[1:], 4096),              # no discriminator
+])
+def test_pairing_rule_keeps_the_singles(make, T):
+    assert compiler.paired(make(), T) == []
+
+
+@pytest.mark.parametrize("C,T,d,casc", [(4, 2048, 16, 2), (3, 4096, 64, 2),
+                                        (2, 1000, 7, 3), (2, 700, 512, 1)])
+def test_paired_chain_equals_single_cores_bit_for_bit(C, T, d, casc):
+    rng = np.random.default_rng(24 + T)
+    step, carry = compiler.compile_chain(fm_blocks(pkg, d, casc), C,
+                                         device="cpu")
+    sstep, scarry = single_cores_step(fm_blocks(pkg, d, casc), C)
+    assert compiler.paired(fm_blocks(pkg, d, casc), T) == [0]
+    for k in range(3):
+        x = torch.from_numpy(fm_input(rng, C, T, offset=0.2 * k))
+        y, carry = step(x, carry)
+        ys, scarry = sstep(x, scarry)
+        assert torch.equal(y, ys)
+        assert len(carry) == len(scarry) == 3
+        for a, b in zip(carry, scarry):
+            assert torch.equal(a, b)
+
+
+def test_a_step_below_d_runs_the_singles_and_the_carry_goes_on():
+    """T < D in one step keeps the singles; the carries pass between the
+    pair's steps and the singles' as one block's carry each."""
+    rng = np.random.default_rng(25)
+    C, d = 2, 64
+    step, carry = compiler.compile_chain(fm_blocks(pkg, d, 2), C,
+                                         device="cpu")
+    sstep, scarry = single_cores_step(fm_blocks(pkg, d, 2), C)
+    for T in (300, 40, 200):
+        x = torch.from_numpy(fm_input(rng, C, T))
+        y, carry = step(x, carry)
+        ys, scarry = sstep(x, scarry)
+        assert torch.equal(y, ys)
+        for a, b in zip(carry, scarry):
+            assert torch.equal(a, b)
+
+
+def test_paired_carry_resumes_in_the_jax_chain():
+    """The paired chain's carry, brought to numpy, lets the JAX chain go
+    on with the stream, and a JAX carry brought back with
+    chain_carry_from_numpy lets the port go on: at the FM bank's D 64,
+    cascade 2."""
+    rng = np.random.default_rng(26)
+    C, T = 3, 4096
+    step, carry = compiler.compile_chain(fm_blocks(pkg, 64, 2), C,
+                                         device="cpu")
+    jstep, _ = jcompiler.compile_chain(fm_blocks(jpkg, 64, 2), C)
+    assert compiler.paired(fm_blocks(pkg, 64, 2), T) == [0]
+    x1, x2, x3 = (fm_input(rng, C, T, offset=0.3) for _ in range(3))
+    _, carry = step(torch.from_numpy(x1), carry)
+    jcarry = tuple(jnp.asarray(c.numpy()) for c in carry)
+    y2, carry = step(torch.from_numpy(x2), carry)
+    yj2, jcarry = jstep(jnp.asarray(x2), jcarry)
+    _close(y2.numpy(), yj2)
+    _close_carry(carry, jcarry)
+    back = compiler.chain_carry_from_numpy(
+        tuple(np.asarray(c) for c in jcarry), device="cpu")
+    y3, carry3 = step(torch.from_numpy(x3), back)
+    yj3, jcarry3 = jstep(jnp.asarray(x3), jcarry)
+    _close(y3.numpy(), yj3)
+    _close_carry(carry3, jcarry3)

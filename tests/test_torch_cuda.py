@@ -12,7 +12,10 @@ another order) and 2e-5 for the FFT (as the JAX package's FFT test);
 spectra of the chains below 1e-5 against the same chain on the CPU;
 carries exact. The probes P1 and P2 equal their plain versions bit for
 bit (x 2 and permutations are exact); E1 within rtol 1e-5 / atol 1e-6
-(tests/test_filter.py's envelope bound); the FM chain and FM topology on
+(tests/test_filter.py's envelope bound); F1 (the discriminator and DC
+cascade in one pass) within 8 float32 ulps of max |y| of its plain
+version (window sums from float64 sums in another order), its
+discriminator carry exact; the FM chain and FM topology on
 the card within 1e-4 absolute of the CPU (cumulative sums of DC removal
 taken in another order, on outputs of order 1). S1 (the frame-sync
 search) and its plain version within the float64 oracle's bounds of
@@ -37,6 +40,8 @@ from pothoscomms_tpu_torch.kernels.envelope import (envelope_rows,
 from pothoscomms_tpu_torch.kernels.fft import fft_c2c, fft_c2c_plain
 from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
     fir_fft_fused, fir_fft_fused_plain, make_fused_chain)
+from pothoscomms_tpu_torch.kernels.fm_demod_dc import (fm_demod_dc,
+                                                       fm_demod_dc_plain)
 from pothoscomms_tpu_torch.kernels.layout_move import (MODES, layout_move,
                                                        layout_move_plain)
 from pothoscomms_tpu_torch.kernels.stream_scale import (stream_scale,
@@ -476,15 +481,16 @@ def _fm_blocks(d=16, casc=2, attack=10.0, release=40.0):
 
 @pytest.mark.parametrize("C,T", [(8, 2048), (2, 32768)])
 def test_fm_compile_chain_on_card_matches_cpu(dev, C, T):
-    """The FM chain through compile_chain on the card (E1 unblocked at
-    T=2048, blocked at T=32768) against the same chain on the CPU, over
-    two chained steps."""
+    """The FM chain through compile_chain on the card (F1 for the
+    discriminator and DC removal; E1 unblocked at T=2048, blocked at
+    T=32768) against the same chain on the CPU, over two chained steps."""
     from pothoscomms_tpu_torch.parallel.compiler import compile_chain
 
     rng = np.random.default_rng(C + T)
     step_c, carry_c = compile_chain(_fm_blocks(), C, device=dev)
     step_h, carry_h = compile_chain(_fm_blocks(), C, device="cpu")
     before = envelope_rows.launches
+    f1_before = fm_demod_dc.launches
     for _ in range(2):
         phase = np.cumsum(rng.uniform(-0.5, 0.5, size=(C, T)), axis=1)
         x = torch.from_numpy(np.stack([np.cos(phase), np.sin(phase)],
@@ -498,6 +504,90 @@ def test_fm_compile_chain_on_card_matches_cpu(dev, C, T):
                                        atol=1e-4)
     torch.cuda.synchronize()
     assert envelope_rows.launches == before + 2
+    assert fm_demod_dc.launches == f1_before + 2
+
+
+def _fm_planar(rng, C, T, offset=0.0):
+    phase = np.cumsum(rng.uniform(-0.5, 0.5, size=(C, T)) + offset, axis=1)
+    return torch.from_numpy(np.stack([np.cos(phase), np.sin(phase)],
+                                     -1).astype(np.float32))
+
+
+F1_ULPS = 8 * 2.0 ** -24   # F1 against its plain version, a share of max|y|
+
+
+@pytest.mark.parametrize("casc", [1, 2, 3])
+@pytest.mark.parametrize("D", [16, 64, 512])
+@pytest.mark.parametrize("T", ["D", 3 * 1920 + 5, 16384, 131072])
+@pytest.mark.parametrize("C", [1, 3, 256])
+def test_fm_demod_dc_kernel_matches_plain(dev, C, T, D, casc):
+    """F1 against the two cores' ops on the card over 3 chained steps,
+    each side on its own carries: outputs and histories within 8 float32
+    ulps of their largest magnitude (window sums from float64 sums in
+    another order), the discriminator's carry exact."""
+    T = D if T == "D" else T
+    rng = np.random.default_rng(C * 131 + T + D * 7 + casc)
+    last_k = torch.zeros(C, 1, 2, device=dev)
+    hists_k = torch.zeros(casc, C, D, device=dev)
+    last_p, hists_p = last_k.clone(), hists_k.clone()
+    for step in range(3):
+        x = _fm_planar(rng, C, T, 0.1 * step).to(dev)
+        before = fm_demod_dc.launches
+        y_k, last_k, hists_k = fm_demod_dc(x, last_k, hists_k, D, casc)
+        torch.cuda.synchronize()
+        assert fm_demod_dc.launches == before + 1
+        y_p, last_p, hists_p = fm_demod_dc_plain(x, last_p, hists_p, D,
+                                                 casc)
+        assert y_k.shape == (C, T) and y_k.dtype == torch.float32
+        assert (y_k - y_p).abs().max().item() <= \
+            F1_ULPS * y_p.abs().max().item()
+        assert torch.equal(last_k, last_p)
+        assert (hists_k - hists_p).abs().max().item() <= \
+            F1_ULPS * hists_p.abs().max().item()
+
+
+def test_fm_demod_dc_holds_float32_resolution_at_a_dc_offset(dev):
+    """The DC-offset case through F1: one 2^24-sample block whose
+    discriminator output has a mean of 0.25. F1 holds the float64 cascade
+    of that output to 1e-6; float32 prefix sums (the JAX package's) lose
+    more than 1e-4."""
+    from pothoscomms_tpu_torch.parallel.chain import freq_demod_planar
+
+    D, casc, T = 64, 2, 1 << 24
+    x = _fm_planar(np.random.default_rng(32), 1, T, 0.25).to(dev)
+    last = torch.zeros(1, 1, 2, device=dev)
+    y, _, _ = fm_demod_dc(x, last, torch.zeros(casc, 1, D, device=dev), D,
+                          casc)
+    u = freq_demod_planar(x, last)[0][0].cpu().numpy()
+    assert abs(float(u.mean()) - 0.25) < 0.01
+
+    def cascade(cur, cumsum):
+        delayed = np.concatenate([np.zeros(D, cur.dtype), cur])[1:1 + T]
+        for _ in range(casc):
+            cs = cumsum(np.concatenate([np.zeros(D, cur.dtype), cur]))
+            cur = (cs[D:] - cs[:-D]) / cur.dtype.type(D)
+        return delayed - cur
+
+    ref = cascade(u.astype(np.float64), np.cumsum)
+    f32 = cascade(u, lambda a: np.cumsum(a, dtype=np.float32))
+    assert np.max(np.abs(f32 - ref)) > 1e-4
+    assert np.max(np.abs(y[0].cpu().numpy() - ref)) < 1e-6
+
+
+def test_fm_demod_dc_wrapper_raises_on_card(dev):
+    x = torch.zeros(4, 256, 2, device=dev)
+    last = torch.zeros(4, 1, 2, device=dev)
+    hists = torch.zeros(2, 4, 64, device=dev)
+    with pytest.raises(ValueError):          # non-contiguous
+        fm_demod_dc(x.transpose(0, 1).contiguous().transpose(0, 1), last,
+                    hists, 64, 2)
+    with pytest.raises(ValueError):          # 4-byte aligned
+        fm_demod_dc(torch.zeros(4 * 256 * 2 + 1, device=dev)[1:].view(
+            4, 256, 2), last, hists, 64, 2)
+    with pytest.raises(ValueError):          # hists on the CPU
+        fm_demod_dc(x, last, hists.cpu(), 64, 2)
+    with pytest.raises(ValueError):          # T < D
+        fm_demod_dc(x[:, :32].contiguous(), last, hists, 64, 2)
 
 
 def test_fm_topology_on_card_matches_cpu(dev):

@@ -142,14 +142,18 @@ def test_topology_spans_nest_round_work_pull_step_post(tmp_path):
     assert quanta >= 1
 
 
-def test_fm_compile_chain_spans_in_order():
+@pytest.mark.parametrize("T,spans", [
+    # DC removal's default average (512) fits F1 at T = 512: one core
+    (512, ["pc.chain.FreqDemod+DCRemoval", "pc.chain.EnvelopeDetector"]),
+    # below the average the two single cores run
+    (256, ["pc.chain.FreqDemod", "pc.chain.DCRemoval",
+           "pc.chain.EnvelopeDetector"])])
+def test_fm_compile_chain_spans_in_order(T, spans):
     step, carry = compiler.compile_chain(fm_blocks(), 2, device="cpu")
-    x = torch.randn(2, 512, 2)
+    x = torch.randn(2, T, 2)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step(x, carry)
-    assert [s[0] for s in host_spans(prof, "pc.chain.")] == [
-        "pc.chain.FreqDemod", "pc.chain.DCRemoval",
-        "pc.chain.EnvelopeDetector"]
+    assert [s[0] for s in host_spans(prof, "pc.chain.")] == spans
 
 
 @pytest.mark.parametrize("nb,form,operand", [
