@@ -56,7 +56,8 @@ Phases, one or more lines each:
  10. path "block_api": feeder -> /comms/fir_filter (64 complex taps) ->
      /comms/fft (1024) -> collector on Topology(device="cuda:0") with the
      default fuse_threshold, fed 2 x 2^25 samples plus 3*1024+17: the
-     fused pair runs K1 per quantum, the drain streams through K2. The
+     fused pair runs the form parallel/chain.fir_fft_form picks (one_pass:
+     one K3 launch a quantum, no K1), the drain streams through K2. The
      float64 oracle on windows at the start, at a row and at quantum
      boundaries and at the end, the output length, and the wall time
      from commit() to wait_inactive() with where it went;
@@ -161,8 +162,10 @@ Phases, one or more lines each:
      keeps only the checked windows, on the card, on Topology(): runs of
      2^25, 2^25 and 2^27 samples. One source-headed segment of five
      blocks, engaged cold (its first quantum q + 63, before any FIR
-     streaming round), cycling to the K1 pair; every K1 launch on the
-     tensor cores; floor((N - 63) / 1024) windows over the N samples
+     streaming round), cycling to the pair in the form
+     parallel/chain.fir_fft_form picks (one_pass: one K3 launch a pair
+     quantum); every K1 launch (the FIR singles') on the tensor cores;
+     floor((N - 63) / 1024) windows over the N samples
      granted, no sample past the quota; the timed run's host-to-device
      bytes from a torch.profiler trace below one quantum of stream data;
      three windows (the first after the cold start, one across the timed
@@ -216,10 +219,11 @@ Phases, one or more lines each:
      group (parallel/distributed.initialize on a file:// store under
      build/), make_mesh() with no device on the card, then (a) path
      "sharded_fir_fft": channel_sharded_fir_fft at C=256, T=131072, K=64,
-     NBINS=1024, two steps, the spectra equal to the unsharded combined
-     step on the same operators bit for bit, K1 within 1e-5 of its plain
-     version, two channels within 1e-4 of a float64 oracle, the carry
-     exact, no collective, timed beside the unsharded step; (b) path
+     NBINS=1024, two steps, in fir_fft_chain's form (one_pass: one K3
+     launch a step, no K1), the spectra equal to fir_fft_chain's step bit
+     for bit, K3 within 1e-5 of its plain version, two channels within
+     1e-4 of a float64 oracle, the carry exact, no collective, timed
+     beside the unsharded step; (b) path
      "sharded_fir_fft_conv": the same at decim 2 (the conv branch), K2 at
      [16384, 1024] held to its plain version and the oracle; (c) paths
      "time_sharded_fir" and "grid_sharded_fir" on make_mesh(1, "t") and
@@ -830,8 +834,9 @@ def phase_27(c, T=N27, CL=256):
     import torch
     import torch.distributed as dist
 
-    from pothoscomms_tpu_torch.kernels.cgemm import cgemm_plain
     from pothoscomms_tpu_torch.kernels.fft import fft_c2c_plain
+    from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
+        correction_operand, fir_fft_fused_plain)
     from pothoscomms_tpu_torch.kernels.sync_search import sync_search
     from pothoscomms_tpu_torch.core.testing import (search_agreement,
                                                     sync_search_f64)
@@ -839,8 +844,7 @@ def phase_27(c, T=N27, CL=256):
     from pothoscomms_tpu_torch.ops import framing as framing_ops
     from pothoscomms_tpu_torch.parallel import distributed
     from pothoscomms_tpu_torch.parallel.chain import (
-        combined_fir_fft_operators, combined_operand, complex_fir_kernel,
-        fir_fft_combined_step, fir_multichannel, stack_combined_operators)
+        complex_fir_kernel, fir_fft_chain, fir_multichannel)
     from pothoscomms_tpu_torch.parallel.compiler import (
         compile_chain, compile_chain_sharded)
     from pothoscomms_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -891,11 +895,13 @@ def phase_27(c, T=N27, CL=256):
         check(dist.get_backend() == "nccl" and mesh.device == dev
               and rank_dev == dev, "[27] the mesh is not on the card over NCCL")
 
-        # -- (a) channel_sharded_fir_fft, the combined step (K1) ---------
+        # -- (a) channel_sharded_fir_fft, in fir_fft_chain's form --------
         taps = (rng.normal(size=K) + 1j * rng.normal(size=K)) / K
         run_a, init_a = channel_sharded_fir_fft(mesh, taps, NB)
-        gr, gi = (g.to(dev) for g in stack_combined_operators(
-            *combined_fir_fft_operators(taps, NB, 128)))
+        run_ref, _ = fir_fft_chain(taps, NB, C, T, device=dev)
+        check(run_a.form == run_ref.form == "one_pass",
+              f"[27](a) the sharded step took {run_a.form}, fir_fft_chain "
+              f"{run_ref.form}")
         xh = [c.normal(C, T, 2) for _ in range(2)]
         xs = [shard(x, mesh, ("ch",)) for x in xh]
         h0 = init_a(C)
@@ -917,38 +923,43 @@ def phase_27(c, T=N27, CL=256):
         errs_a = []
         h_ref = torch.zeros_like(h0)
         for s, x in enumerate(xs):
-            ref, h_ref = fir_fft_combined_step(x, h_ref, gr, gi, NB, K, 128)
+            ref, h_ref = run_ref(x, h_ref)
             same = torch.equal(specs[s], ref)
-            plain = cgemm_plain(combined_operand(x, hs[s], NB, K, 128), gr,
-                                gi).reshape(specs[s].shape)
+            uw = correction_operand(x, hs[s], NB, K, run_ref.gt.shape[0])
+            plain = fir_fft_fused_plain(
+                x.reshape(-1, NB, 2), uw, run_ref.H,
+                run_ref.gt).reshape(specs[s].shape)
             r_plain = rel(specs[s], plain)
             exact = torch.equal(hs[s + 1], x[:, T - (K - 1):])
             errs_a.append(r_plain)
             print(f"[27](a) step {s}: spectra {tuple(specs[s].shape)} equal "
-                  f"to the unsharded combined step bit for bit {same}; K1 "
+                  f"to fir_fft_chain's step bit for bit {same}; K3 "
                   f"/max|plain| {r_plain:.3e} (limit 1e-5); carry the last "
                   f"K-1 inputs {exact}")
             check(same and r_plain < 1e-5 and exact
                   and bool(torch.isfinite(specs[s]).all()),
-                  f"[27](a) step {s} disagrees with the unsharded step, "
-                  f"K1's plain version or the carry contract")
+                  f"[27](a) step {s} disagrees with fir_fft_chain's step, "
+                  f"K3's plain version or the carry contract")
         ora = [oracle_rel(specs[1], xh[0], xh[1], ch, 1) for ch in (0, C - 1)]
         ms_a = c.median_ms(lambda: run_a(xs[0], h0))
-        ms_a1 = c.median_ms(lambda: fir_fft_combined_step(xs[0], h0, gr, gi,
-                                                          NB, K, 128))
+        ms_a1 = c.median_ms(lambda: run_ref(xs[0], h0))
         print(f"[27](a) channel_sharded_fir_fft C={C} T={T} K={K} NBINS={NB}"
-              f" on {card}: 2 steps {wall_a:.4f} s; a step {ms_a:.3f} ms "
-              f"sharded, {ms_a1:.3f} ms unsharded ({C * T / ms_a / 1e3:.1f} "
-              f"Msamples/s); float64 oracle, channels 0 and {C - 1} of step "
-              f"1: /max|spectrum| {max(ora):.3e} (limit 1e-4); P2P "
-              f"{coll_a[0]}, collectives {coll_a[1]}; launches "
-              f"{launches['sharded_fir_fft']}")
+              f" ({run_a.form}) on {card}: 2 steps {wall_a:.4f} s; a step "
+              f"{ms_a:.3f} ms sharded, {ms_a1:.3f} ms unsharded "
+              f"({C * T / ms_a / 1e3:.1f} Msamples/s); float64 oracle, "
+              f"channels 0 and {C - 1} of step 1: /max|spectrum| "
+              f"{max(ora):.3e} (limit 1e-4); P2P {coll_a[0]}, collectives "
+              f"{coll_a[1]}; launches {launches['sharded_fir_fft']}")
         check(max(ora) < 1e-4, "[27](a) disagrees with the float64 oracle")
-        check(launches["sharded_fir_fft"]["cgemm"] == 2 and coll_a == (0, 0),
-              "[27](a) did not launch K1 once a step, or communicated")
-        summary["a"] = {"init_s": wall_init, "oracle_rel": max(ora), "k1_rel_plain": max(errs_a),
-                        "step_ms": ms_a, "unsharded_ms": ms_a1}
-        del specs, hs, h_ref, ref, plain
+        check(launches["sharded_fir_fft"]["fir_fft_fused"] == 2
+              and launches["sharded_fir_fft"]["cgemm"] == 0
+              and coll_a == (0, 0),
+              "[27](a) did not launch K3 once a step (and no K1), or "
+              "communicated")
+        summary["a"] = {"init_s": wall_init, "oracle_rel": max(ora),
+                        "k3_rel_plain": max(errs_a), "step_ms": ms_a,
+                        "unsharded_ms": ms_a1}
+        del specs, hs, h_ref, ref, plain, uw
 
         # -- (b) the conv branch (decim 2): conv FIR, then K2 ------------
         run_b, init_b = channel_sharded_fir_fft(mesh, taps, NB, decim=2)
@@ -1319,8 +1330,9 @@ def main() -> int:
         correction_operand, correction_spectrum, fused_consts_from_numpy)
     from pothoscomms_tpu_torch.parallel.chain import (
         carry_from_numpy, combined_fir_fft_operators, fir_fft_chain,
-        fir_fft_combined_step, fir_multichannel, make_split_step,
-        operators_from_numpy, split_operand, stack_combined_operators)
+        fir_fft_combined_step, fir_fft_form, fir_multichannel,
+        make_split_step, operators_from_numpy, split_operand,
+        stack_combined_operators)
     from pothoscomms_tpu_torch.parallel import compiler as compiler_mod
     from pothoscomms_tpu_torch.parallel.compiler import (
         chain_carry_from_numpy, compile_chain)
@@ -1898,8 +1910,11 @@ def main() -> int:
           f"{seg_b.fused_elements} samples fused")
     check(seg_b.engage_count >= 1 and seg_b.pair_engaged,
           "the block path did not engage the pair core")
-    check(launches_b["cgemm"] >= 2 and launches_b["fft_c2c"] >= 1,
-          "the block path did not launch cgemm >= 2 and fft_c2c >= 1")
+    form_b = fir_fft_form(K, NB, 1, NB)
+    check(form_b == "one_pass" and launches_b["fir_fft_fused"] >= 2
+          and launches_b["fft_c2c"] >= 1,
+          f"the block path's pair ({form_b}) did not launch fir_fft_fused "
+          f">= 2 and fft_c2c >= 1")
     check(launches_b["cgemm_by_variant"][TENSOR_CORES]
           == launches_b["cgemm"],
           "a block-API cgemm launch missed the tensor-core variant")
@@ -3425,8 +3440,16 @@ def main() -> int:
           and first23[0] == q23 + K23 - 1,
           "the wave chain did not engage cold before any FIR streaming round")
     check(not runs23[0][0][1] and any(q[1] for q in runs23[0][1:]),
-          "the wave chain did not cycle from its cold singles to the K1 pair "
+          "the wave chain did not cycle from its cold singles to the pair "
           "in run 1")
+    form23 = fir_fft_form(K23, NB23, 1, NB23)
+    n_pair23 = sum(p for p, _ in pairs23)
+    print(f"[23] the pair's form: {form23}; {n_pair23} pair quanta, "
+          f"fir_fft_fused launches {launches23['fir_fft_fused']}")
+    check(form23 == "one_pass"
+          and launches23["fir_fft_fused"] == n_pair23,
+          "the wave chain's pair did not launch fir_fft_fused once a pair "
+          "quantum")
     check(launches23["cgemm"] >= 1 and launches23["fft_c2c"] >= 1,
           "the wave chain did not launch cgemm and fft_c2c")
     check(launches23["cgemm_by_variant"][TENSOR_CORES]

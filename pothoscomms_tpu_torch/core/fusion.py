@@ -23,9 +23,10 @@ Design:
   (``fuse_import``) and the members resume the exact reference
   semantics. Export/import are lossless inverses, so engage/disengage
   can alternate freely mid-stream.
-- **Peephole**: an adjacent FIR -> forward-FFT pair runs as the combined
-  FIR*DFT operator (parallel/chain.py): one complex product per quantum
-  on the K1 kernel, instead of two separate cores.
+- **Peephole**: an adjacent FIR -> forward-FFT pair runs as one
+  ``parallel/chain.FirFftChain`` step per quantum, in the form that
+  ``chain.fir_fft_form`` picks for its taps and bins (``one_pass`` or
+  ``combined``: one kernel launch), instead of two separate cores.
 - **Device-resident edges**: a segment posts its output as a
   :class:`DeviceChunk` — a planar-f32 tensor wrapped with the port
   dtype. Host blocks downstream materialize it through ``__array__``.
@@ -65,7 +66,7 @@ from the host. Such a segment may engage COLD, before any streaming round:
 at most one member (a 1:1 FIR) may start from an empty port, its first
 quantum over-pulls K-1 samples (counted in head units) that become its
 history, and a cold FIR -> FFT adjacency engages as two singles first and
-cycles to the K1 pair once that quantum has warmed the FIR's carry. A
+cycles to the pair once that quantum has warmed the FIR's carry. A
 source never generates past its quota: the pull plus the over-pull stays
 within it.
 
@@ -334,7 +335,7 @@ class FusedSegment:
         self._refresh_geometry()
         # built cores and device operators across engage cycles, keyed by
         # (member epochs, unit plan), so a disengage/re-engage (labels,
-        # drain) does not rebuild and re-upload the pair's operator
+        # drain) does not rebuild and re-upload the pair's operators
         self._step_cache: dict = {}
         # post-label backlog withheld from the streaming drain for the
         # remainder of the current round (returned by the topology at
@@ -347,7 +348,7 @@ class FusedSegment:
         self.stash_safe = False
         # a cold FIR -> FFT adjacency engaged as singles; after the first
         # quantum warms the FIR's carry the segment re-engages, and the
-        # pair peephole then takes the combined operator
+        # pair peephole then takes the pair core
         self._pair_pending = False
         # head-unit over-pull of the FIRST quantum after a cold engage
         self._cold_extra = 0
@@ -512,7 +513,7 @@ class FusedSegment:
                     continue
                 if (getattr(b, "fuse_cold_start", lambda: False)()
                         and self._pair_eligible(b, nxt, cold_ok=True)):
-                    # a COLD FIR cannot join the combined operator (its
+                    # a COLD FIR cannot join the pair core (its
                     # history is the first quantum's head); engage as
                     # singles now and cycle to the pair after the first
                     # quantum (see _work_source)
@@ -582,11 +583,14 @@ class FusedSegment:
 
     @staticmethod
     def _pair_eligible(fir, fft, cold_ok: bool = False) -> bool:
-        """Combined FIR*DFT operator preconditions (no side effects):
-        1:1 rate, complex float stream, 1 < K <= min(128, nbins)+1,
-        forward FFT, no mid-frame leftover phase, K-1 history present (a
-        cold FIR engages with single cores first; ``cold_ok`` checks
-        everything EXCEPT the history, for the pending-pair cycle)."""
+        """Pair core preconditions (no side effects): 1:1 rate, complex
+        float stream, forward FFT, a one-step form of ``chain.fir_fft_form``
+        (``one_pass`` or ``combined``) for the taps and bins, no mid-frame
+        leftover phase, K-1 history present (a cold FIR engages with
+        single cores first; ``cold_ok`` checks everything EXCEPT the
+        history, for the pending-pair cycle)."""
+        from pothoscomms_tpu_torch.parallel.chain import fir_fft_form
+
         if fir._M != 1 or fir._L != 1:
             return False
         if fft.inverse or not fir.dtype.is_complex:
@@ -594,31 +598,25 @@ class FusedSegment:
         if fir.dtype.is_integer or fft.dtype.is_integer:
             return False  # int16 pairs need per-block Q-format rounding
         k = len(fir._taps)
-        pp = min(128, fft.num_bins)
-        if not (1 < k <= pp + 1):
+        nbins = fft.num_bins
+        if fir_fft_form(k, nbins, 1, nbins) not in ("one_pass", "combined"):
             return False
         if not cold_ok and fir.input(0).elements() < k - 1:
             return False
         return fft.input(0).elements() == 0
 
     def _build_pair_core(self, fir, fft):
-        """Adjacent FIR -> forward FFT as the combined FIR*DFT operator
-        (parallel/chain.py), one K1 product per quantum. Big pulls are
-        reshaped into [R, PAIR_ROW] rows (R a power of two <= 256) with
-        the FIR history stitched across rows."""
-        from pothoscomms_tpu_torch.parallel.chain import (
-            combined_fir_fft_operators, fir_fft_combined_step,
-            stack_combined_operators)
+        """Adjacent FIR -> forward FFT as one ``parallel/chain.FirFftChain``
+        (its one parameter), one step per quantum. Big pulls are reshaped
+        into [R, PAIR_ROW] rows (R a power of two <= 256) with the FIR
+        history stitched across rows."""
+        from pothoscomms_tpu_torch.parallel.chain import FirFftChain
 
         k = len(fir._taps)
         nbins = fft.num_bins
-        pp = min(128, nbins)
-        dev = self.topology.device
-        gr, gi = stack_combined_operators(
-            *combined_fir_fft_operators(fir._taps, nbins, pp))
-        params = (gr.to(dev), gi.to(dev))
+        chain = FirFftChain(fir._taps, nbins, nbins, 1, self.topology.device)
 
-        def step(carry, x, gr, gi):
+        def step(carry, x, chain):
             t = x.shape[1]
             # r: power of two <= 256 that divides the window count, so
             # each row is a whole number of nbins-windows
@@ -630,12 +628,12 @@ class FusedSegment:
             xr = x.reshape(r, row, 2)
             # row i's history = tail of row i-1 (overlap-save)
             hists = torch.cat([carry, xr[:-1, row - (k - 1):]], dim=0)
-            spec, _ = fir_fft_combined_step(xr, hists, gr, gi, nbins, k, pp)
+            spec, _ = chain(xr, hists)
             # a copy, so the carry does not hold the whole pull alive
             new_carry = xr[-1:, row - (k - 1):].clone()
             return new_carry, spec.reshape(1, t // nbins, nbins, 2)
 
-        return step, params
+        return step, (chain,)
 
     def disengage(self) -> None:
         if not self.engaged:
@@ -804,7 +802,7 @@ class FusedSegment:
         self.fused_elements += q
         if self._pair_pending:
             # the first quantum warmed the cold FIR: re-engage so the
-            # pair peephole takes the combined operator
+            # pair peephole takes the pair core
             self._pair_pending = False
             self.disengage()
             self.try_engage()

@@ -2,22 +2,27 @@
 float32 tensors with an explicit carry: the port of the FIR -> FFT part
 of the JAX package's ``parallel/chain.py``.
 
-Four formulations, chosen by :class:`FirFftChain` by shape:
+:func:`fir_fft_form` is the one rule that picks a formulation by shape;
+:class:`FirFftChain` runs its answer, and the block API's FIR -> FFT pair
+(``core/fusion.py``), the channel-sharded chain (``parallel/mesh.py``)
+and the dry run's entry (``parallel/dryrun.py``) run a
+:class:`FirFftChain`. The four forms:
 
-- the one-pass step (the main path; not in the JAX package's
+- ``one_pass`` (the main path; not in the JAX package's
   ``fir_fft_chain``): each window's FFT times H plus the transformed
   circular correction, in one launch of the K3 kernel
-  (``kernels/fir_fft_fused.py``), where its contract holds: decim == 1,
-  nbins == 1024, 1 < K <= 65 and the block a multiple of nbins;
-- elsewhere the JAX package's three, with its conditions: the combined
-  FIR*DFT operator, each window and the ``prev_pad`` samples before it
-  times the stacked ``[G1; G0]`` operator, in one complex product on the
-  K1 kernel;
-- the block-Toeplitz matmul FIR (K1) followed by the FFT (K2);
-- the ``conv1d`` FIR, with decimation, followed by the FFT (K2).
+  (``kernels/fir_fft_fused.py``), where its contract holds;
+- elsewhere the JAX package's three, with its conditions: ``combined``,
+  the combined FIR*DFT operator, each window and the ``prev_pad``
+  samples before it times the stacked ``[G1; G0]`` operator, in one
+  complex product on the K1 kernel;
+- ``toeplitz``, the block-Toeplitz matmul FIR (K1) followed by the FFT
+  (K2);
+- ``conv``, the ``conv1d`` FIR, with decimation, followed by the FFT
+  (K2).
 
-Beside them, not chosen by :class:`FirFftChain` (as in the JAX package):
-the split-stream (radix-R) step of :func:`make_split_step`, R products of
+Beside them, not chosen by the rule (as in the JAX package): the
+split-stream (radix-R) step of :func:`make_split_step`, R products of
 width (W + pp) on K1 in place of one of width (nbins + prev_pad).
 
 The carry is ``hist [C, K-1, 2]``: the last K-1 raw inputs.
@@ -389,35 +394,36 @@ def circ_correction_operators(taps, nbins: int):
     return Hp, _planes(gc)
 
 
-def fir_fft_circ_step(x, hist, Hp, gcr, gci, nbins: int, k: int):
-    """One circular-correction FIR+FFT step: x [C, T, 2] -> (spectra
-    [C, T//nbins, nbins, 2], new_hist [C, k-1, 2]). The FFT runs on K2,
-    the correction product on K1."""
-    c, t, _ = x.shape
-    nw = t // nbins
-    xw = x.reshape(c, nw, nbins, 2)
-    spec = cplx.mul(fft_planar(xw, nbins, False), Hp)
-    # u_w[m-1] = prev_tail[-m] - x_w[-m], m = 1..K-1: reversed tails
-    tails = xw[:, :, nbins - (k - 1):].flip(2)               # [c, nw, K-1, 2]
-    prev_tails = torch.cat([hist[:, None].flip(2), tails[:, :-1]], dim=1)
-    u = (prev_tails - tails).reshape(c * nw, k - 1, 2)
-    delta = cgemm(u, gcr, gci).reshape(c, nw, nbins, 2)
-    return spec + delta, x[:, t - (k - 1):].contiguous()
+def fir_fft_form(k: int, nbins: int, decim: int, block: int) -> str:
+    """The formulation of a FIR -> FFT step of ``k`` taps, ``nbins``
+    bins and decimation ``decim`` over blocks of ``block`` samples:
+
+    - ``"one_pass"`` (K3) where its contract holds: decim == 1,
+      nbins == 1024, 1 < K <= ONE_PASS_PP + 1 and ``block`` a multiple
+      of ``nbins``;
+    - else, as the JAX package's ``fir_fft_chain``, ``"combined"`` (K1)
+      when decim == 1, 1 < K <= prev_pad + 1 (prev_pad = min(128,
+      nbins)) and ``block`` is a multiple of ``nbins``;
+    - else ``"toeplitz"`` when decim == 1, K <= 128 and ``block`` is a
+      multiple of 128;
+    - else ``"conv"``.
+    """
+    if decim == 1 and block % nbins == 0:
+        if nbins == 1024 and 1 < k <= ONE_PASS_PP + 1:
+            return "one_pass"
+        if 1 < k <= min(128, nbins) + 1:
+            return "combined"
+    if decim == 1 and k <= 128 and block % 128 == 0:
+        return "toeplitz"
+    return "conv"
 
 
 class FirFftChain(nn.Module):
     """FIR -> windowed FFT over [C, T, 2] blocks with the K-1 sample carry.
 
-    The formulation (``form``) follows from the shapes: the one-pass step
-    on K3 where its contract holds, decim == 1, nbins == 1024,
-    1 < K <= ONE_PASS_PP + 1 and ``block`` a multiple of ``nbins`` (H and
-    gt from :func:`fused_chain_consts`). Elsewhere it follows the JAX
-    package's ``fir_fft_chain``: the combined FIR*DFT operator when
-    decim == 1, 1 < K <= prev_pad + 1 and ``block`` is a multiple of
-    ``nbins`` (prev_pad = min(128, nbins)); else the Toeplitz matmul FIR
-    when decim == 1, K <= 128 and ``block`` is a multiple of 128; else
-    the conv FIR. The operators are buffers on ``device`` (the card unless
-    the caller names another).
+    The formulation (``form``) is :func:`fir_fft_form`'s answer for the
+    taps, ``nbins``, ``decim`` and ``block``; its operators are buffers on
+    ``device`` (the card unless the caller names another).
 
     With decim > 1 the block must be a multiple of decim * nbins, so that
     every block starts on the decimation's phase and ends on a window.
@@ -434,23 +440,18 @@ class FirFftChain(nn.Module):
         taps = np.asarray(taps)
         self.nbins, self.k, self.decim = nbins, len(taps), decim
         self.prev_pad = min(128, nbins)
-        if decim == 1 and nbins == 1024 and 1 < self.k <= ONE_PASS_PP + 1 \
-                and block % nbins == 0:
-            self.form = "one_pass"
+        self.form = fir_fft_form(self.k, nbins, decim, block)
+        if self.form == "one_pass":
             H, gt = fused_chain_consts(taps, nbins, ONE_PASS_PP)
             ops = dict(H=H, gt=gt)
-        elif decim == 1 and 1 < self.k <= self.prev_pad + 1 \
-                and block % nbins == 0:
-            self.form = "combined"
+        elif self.form == "combined":
             gr, gi = stack_combined_operators(*combined_fir_fft_operators(
                 taps, nbins, self.prev_pad))
             ops = dict(gr=gr, gi=gi)
-        elif decim == 1 and self.k <= 128 and block % 128 == 0:
-            self.form = "toeplitz"
+        elif self.form == "toeplitz":
             t0, t1 = fir_toeplitz_matrices(taps)
             ops = dict(t0=t0, t1=t1)
         else:
-            self.form = "conv"
             ops = dict(kernel=complex_fir_kernel(taps))
         self.span = "pc.fir_fft." + self.form
         device = placement.resolve(device)

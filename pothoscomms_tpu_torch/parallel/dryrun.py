@@ -1,8 +1,8 @@
 """Entry points of the scale-out layer, the port of the JAX package's
 ``__graft_entry__.py``, and a launcher for one rank of a job.
 
-- :func:`entry`: a forward step of the flagship pipeline (the fused
-  256-channel FIR+FFT chain's combined step) with example arguments.
+- :func:`entry`: a forward step of the flagship pipeline (the FIR+FFT
+  chain, ``parallel/chain.FirFftChain``) with example arguments.
 - :func:`dryrun_multichip`: on every rank of an n-rank job, one full
   sharded step at small shapes: channel-parallel FIR+FFT, time-parallel
   FIR with K-1 halos (checked against one device), the channel-sharded FM
@@ -33,9 +33,9 @@ import torch
 import torch.distributed as dist
 
 from pothoscomms_tpu_torch.parallel import distributed
-from pothoscomms_tpu_torch.parallel.chain import (
-    combined_fir_fft_operators, complex_fir_kernel, fir_fft_combined_step,
-    fir_multichannel, stack_combined_operators)
+from pothoscomms_tpu_torch.parallel.chain import (FirFftChain,
+                                                  complex_fir_kernel,
+                                                  fir_multichannel)
 from pothoscomms_tpu_torch.parallel.compiler import compile_chain_sharded
 from pothoscomms_tpu_torch.parallel.mesh import (channel_sharded_fir_fft,
                                                  gather, grid_sharded_fir,
@@ -44,24 +44,20 @@ from pothoscomms_tpu_torch.parallel.mesh import (channel_sharded_fir_fft,
 
 
 def entry(device=None):
-    """(fn, args): the combined FIR+FFT step of the flagship pipeline and
-    example arguments on ``device`` (default: the card), C=8, T=2048,
-    K=16, NBINS=256; ``fn(*args) -> (spectra, carry)``."""
+    """(fn, args): the FIR+FFT chain's step (a ``FirFftChain``, in the form
+    ``fir_fft_form`` picks: ``combined`` at these shapes) and example
+    arguments on ``device`` (default: the card), C=8, T=2048, K=16,
+    NBINS=256; ``fn(*args) -> (spectra, carry)``."""
     from pothoscomms_tpu_torch.core import placement
 
     dev = placement.resolve(device)
     C, T, K, NBINS = 8, 2048, 16, 256
     rng = np.random.default_rng(0)
     taps = (rng.normal(size=K) + 1j * rng.normal(size=K)) / K
-    gr, gi = (g.to(dev) for g in stack_combined_operators(
-        *combined_fir_fft_operators(taps, NBINS, 128)))
+    fn = FirFftChain(taps, NBINS, T, 1, dev)
     x = torch.from_numpy(rng.normal(size=(C, T, 2)).astype(np.float32)).to(dev)
     hist = torch.zeros((C, K - 1, 2), dtype=torch.float32, device=dev)
-
-    def fn(x, hist, gr, gi):
-        return fir_fft_combined_step(x, hist, gr, gi, NBINS, K, 128)
-
-    return fn, (x, hist, gr, gi)
+    return fn, (x, hist)
 
 
 def _fm_blocks():

@@ -41,9 +41,9 @@ import torch.distributed as dist
 
 from pothoscomms_tpu_torch.core import placement
 from pothoscomms_tpu_torch.ops.filter import _polyphase_matrix, polyphase_fir
-from pothoscomms_tpu_torch.parallel.chain import (
-    combined_fir_fft_operators, complex_fir_kernel, fir_fft_combined_step,
-    fir_fft_step, fir_multichannel, stack_combined_operators)
+from pothoscomms_tpu_torch.parallel.chain import (FirFftChain,
+                                                  complex_fir_kernel,
+                                                  fir_multichannel)
 
 
 class Mesh:
@@ -228,39 +228,20 @@ def channel_sharded_fir_fft(mesh: Mesh, taps, nbins: int, decim: int = 1):
     split over the mesh's "ch" axis. Returns (run, init_history) with
     ``run(x, hist) -> (spectra, hist)`` on the rank's shard.
 
-    decim == 1 with 1 < K <= prev_pad + 1 (prev_pad = min(128, nbins))
-    runs the combined FIR*DFT step (parallel/chain.py) on K1, its stacked
-    operator built once on the rank's device; else the conv FIR and the
-    FFT on K2."""
-    taps = np.asarray(taps)
-    k = len(taps)
+    ``run`` is a :class:`parallel.chain.FirFftChain` on the rank's device
+    for blocks of decim * nbins samples, so it takes the form that
+    ``chain.fir_fft_form`` picks there, as ``fir_fft_chain`` does; T is a
+    multiple of decim * nbins."""
+    run = FirFftChain(taps, nbins, decim * nbins, decim, mesh.device)
     n = mesh.axis_size("ch")
-    dev = mesh.device
-    # prev_pad <= nbins required by the combined step's previous-window
-    # slice (see fir_fft_chain); longer taps use the conv fallback
-    prev_pad = min(128, nbins)
 
     def init_history(channels: int) -> torch.Tensor:
         """This rank's zero carry [channels // n, K-1, 2] on its device
         (the JAX package's returns the global array)."""
         if channels % n:
             raise ValueError(f"{channels} channels do not split into {n}")
-        return torch.zeros((channels // n, k - 1, 2), dtype=torch.float32,
-                           device=dev)
-
-    if decim == 1 and 1 < k <= prev_pad + 1:
-        gr, gi = (g.to(dev) for g in stack_combined_operators(
-            *combined_fir_fft_operators(taps, nbins, prev_pad)))
-
-        def run(x, hist):
-            return fir_fft_combined_step(x, hist, gr, gi, nbins, k, prev_pad)
-
-        return run, init_history
-
-    kernel = complex_fir_kernel(taps).to(dev)
-
-    def run(x, hist):
-        return fir_fft_step(x, hist, kernel, nbins, decim)
+        return torch.zeros((channels // n, run.k - 1, 2),
+                           dtype=torch.float32, device=mesh.device)
 
     return run, init_history
 

@@ -18,10 +18,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+import pothoscomms_tpu_torch as pkg
 from pothoscomms_tpu.parallel import chain as jchain
 from pothoscomms_tpu.parallel import profiling as jprofiling
-from pothoscomms_tpu_torch.parallel import chain, profiling
+from pothoscomms_tpu_torch.core import fixtures as fix
+from pothoscomms_tpu_torch.kernels.fir_fft_fused import (ONE_PASS_PP,
+                                                         fused_chain_consts,
+                                                         one_pass_step)
+from pothoscomms_tpu_torch.parallel import chain, mesh, profiling
 
 torch.set_num_threads(1)
 
@@ -192,12 +198,15 @@ def test_combined_operand_layout():
 
 @pytest.mark.parametrize("k", [29, 2])
 def test_fir_fft_circ_step_matches_jax(k):
+    """The JAX package's circular-correction step (K2, then a K1
+    correction product) against the port's form of it: the one-pass step
+    (K3, its plain version on the CPU)."""
     rng = np.random.default_rng(28)
     C, T, NB = 2, 2048, 512
     x, hist = _x(rng, C, T), _x(rng, C, k - 1)
     taps = _taps(rng, k)
-    Hp, (gcr, gci) = chain.circ_correction_operators(taps, NB)
-    spec, h = chain.fir_fft_circ_step(_t(x), _t(hist), Hp, gcr, gci, NB, k)
+    H, gt = fused_chain_consts(taps, NB, ONE_PASS_PP)
+    spec, h = one_pass_step(_t(x), _t(hist), H, gt, k)
     jH, (jgr, jgi) = jchain.circ_correction_operators(taps, NB)
     se, he = jchain.fir_fft_circ_step(jnp.asarray(x), jnp.asarray(hist), jH,
                                       jgr, jgi, jgr + jgi, NB, k)
@@ -217,7 +226,8 @@ def _oracle(x_steps, taps, nb, decim=1):
     return np.fft.fft(y.reshape(c, -1, nb), axis=-1)
 
 
-@pytest.mark.parametrize("k,nb,decim,form", [
+# (K, nbins, decim, the form fir_fft_form picks at T = 4096)
+CHAIN_CASES = [
     (64, 1024, 1, "one_pass"),
     (100, 64, 1, "toeplitz"),   # nbins < 128 with long taps
     (200, 1024, 1, "conv"),     # K > 129
@@ -225,7 +235,12 @@ def _oracle(x_steps, taps, nb, decim=1):
     (65, 1024, 1, "one_pass"),  # K - 1 = pp, the one-pass step's limit
     (66, 1024, 1, "combined"),  # K - 1 > pp
     (64, 512, 1, "combined"),   # nbins != 1024
-])
+    (33, 1024, 1, "one_pass"),  # the block API pair's shapes
+    (17, 256, 1, "combined"),
+]
+
+
+@pytest.mark.parametrize("k,nb,decim,form", CHAIN_CASES)
 def test_fir_fft_chain_three_steps_matches_jax(k, nb, decim, form):
     rng = np.random.default_rng(29)
     C, T = 8, 4096
@@ -248,6 +263,59 @@ def test_fir_fft_chain_three_steps_matches_jax(k, nb, decim, form):
     got = np.concatenate(specs, axis=1)
     exp = _oracle(xs, taps, nb, decim)
     assert _rel_err(got[..., 0] + 1j * got[..., 1], exp) < 1e-4
+
+
+def _pair_spans(taps, nb, decim, n=1 << 14):
+    """The pc.fir_fft.* span names a fused FeederSource -> FIR(taps,
+    decim) -> FFT(nb) topology on the CPU opens over ``n`` samples, and
+    whether its segment took the pair core."""
+    feed = fix.FeederSource("complex_float32")
+    fir = pkg.BlockRegistry.make("/comms/fir_filter", "complex_float32",
+                                 "COMPLEX")
+    fir.set_taps(taps)
+    fir.set_decimation(decim)
+    fft = pkg.BlockRegistry.make("/comms/fft", "complex_float32", nb, False)
+    sink = fix.CollectorSink("complex_float32")
+    topo = pkg.Topology(device="cpu")
+    topo.fuse_threshold = 4096
+    for a, b in zip([feed, fir, fft], [fir, fft, sink]):
+        topo.connect(a, 0, b, 0)
+    x = _x(np.random.default_rng(33), n)
+    feed.feed_buffer(x.view(np.complex64)[:, 0])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        topo.commit()
+        assert topo.wait_inactive(timeout=60.0)
+    spans = {e.name for e in prof.events()
+             if e.name.startswith("pc.fir_fft.")}
+    return spans, any(s.pair_engaged for s in topo._segments)
+
+
+@pytest.mark.parametrize("k,nb,decim,form", CHAIN_CASES)
+def test_fir_fft_forms_agree(k, nb, decim, form):
+    """fir_fft_chain, the channel-sharded step and the block API's pair
+    each run fir_fft_form's answer for their blocks (T for the chain,
+    decim * nbins for the sharded step, nbins for the pair): the same
+    form, except that toeplitz needs a block that is a multiple of 128.
+    The sharded step's spectra equal the chain's within the chain
+    contract; the pair engages where the form is one kernel launch."""
+    rng = np.random.default_rng(34)
+    C, T = 2, 4096
+    taps = _taps(rng, k)
+    run, carry = chain.fir_fft_chain(taps, nb, C, T, decim, device="cpu")
+    assert run.form == chain.fir_fft_form(k, nb, decim, T) == form
+    one_rank = mesh.Mesh({"ch": (1, 0, None)}, torch.device("cpu"))
+    sharded, init = mesh.channel_sharded_fir_fft(one_rank, taps, nb, decim)
+    assert sharded.form == chain.fir_fft_form(k, nb, decim, decim * nb)
+    assert sharded.form == (form if form != "toeplitz"
+                            or (decim * nb) % 128 == 0 else "conv")
+    x = _t(_x(rng, C, T))
+    spec, _ = run(x, carry)
+    spec_s, _ = sharded(x, init(C))
+    assert _rel_err(spec_s, spec) < 1e-4
+    paired = decim == 1 and form in ("one_pass", "combined")
+    spans, pair_engaged = _pair_spans(taps, nb, decim)
+    assert pair_engaged == paired
+    assert spans == ({"pc.fir_fft." + form} if paired else set())
 
 
 def test_chain_from_jax_operators_matches():

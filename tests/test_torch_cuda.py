@@ -47,7 +47,8 @@ from pothoscomms_tpu_torch.kernels.layout_move import (MODES, layout_move,
 from pothoscomms_tpu_torch.kernels.stream_scale import (stream_scale,
                                                         stream_scale_plain)
 from pothoscomms_tpu_torch.parallel.chain import (
-    combined_fir_fft_operators, fir_fft_chain, stack_combined_operators)
+    combined_fir_fft_operators, fir_fft_chain, fir_fft_form,
+    stack_combined_operators)
 from pothoscomms_tpu_torch.core.testing import (FUSED_MATH_CASES,
                                                 fused_math_agree,
                                                 fused_math_feeds,
@@ -301,7 +302,8 @@ def test_chain_on_card_matches_cpu(dev, k, nb, decim, form):
 @pytest.mark.parametrize("fuse", [True, False])
 def test_block_path_topology_on_card(dev, fuse):
     """feeder -> /comms/fir_filter -> /comms/fft -> collector on
-    Topology(device="cuda:0"): fused, the pair core runs K1 and the
+    Topology(device="cuda:0"): fused, the pair core runs the form
+    fir_fft_form picks for 33 taps at 256 bins (combined, on K1) and the
     drain streams the FFT on K2; unfused, the FIR streams on the card and
     every window goes through K2. Matches the same topology on the CPU."""
     from pothoscomms_tpu_torch import BlockRegistry, Topology
@@ -336,6 +338,7 @@ def test_block_path_topology_on_card(dev, fuse):
     k1, k2 = cgemm.launches - before[0], fft_c2c.launches - before[1]
     ref, _ = run("cpu")
     if fuse:
+        assert fir_fft_form(33, 256, 1, 256) == "combined"
         assert topo._segments[0].pair_engaged and k1 >= 1
     assert k2 >= 1
     assert got.shape == ref.shape and got.dtype == np.complex64
@@ -977,9 +980,11 @@ def _wave_chain(taps, nb):
 
 def test_wave_chain_on_card_matches_float64_oracle(dev):
     """waveform -> scale -> rotate -> FIR(64) -> FFT(1024) on Topology()
-    at 2^20 samples: one source-headed segment engaged cold, cycling to the
-    K1 pair (every K1 launch on the tensor cores), every window within
-    1e-4 of max |spectrum| of a float64 oracle of the same table walk."""
+    at 2^20 samples: one source-headed segment engaged cold (the FIR
+    single on K1, every K1 launch on the tensor cores), cycling to the
+    pair in the form fir_fft_form picks (one_pass, on K3), every window
+    within 1e-4 of max |spectrum| of a float64 oracle of the same table
+    walk."""
     from pothoscomms_tpu_torch import Topology
     from pothoscomms_tpu_torch.core.fixtures import CollectorSink
 
@@ -992,13 +997,17 @@ def test_wave_chain_on_card_matches_float64_oracle(dev):
     for a, b in zip(blocks, blocks[1:] + [sink]):
         topo.connect(a, 0, b, 0)
     by_variant = dict(cgemm.launches_by_variant)
+    k3 = fir_fft_fused.launches
     topo.run_source_elements(n)
     torch.cuda.synchronize()
     seg = topo._segments[0]
     assert seg.blocks == blocks and seg.cold_engages == 1
     assert seg.pair_engaged and seg.engage_count == 2
+    assert fir_fft_form(k, nb, 1, nb) == "one_pass"
+    assert fir_fft_fused.launches - k3 >= 1
     took = {v: cgemm.launches_by_variant[v] - by_variant[v]
             for v in by_variant}
+    # the cold quantum's FIR single: its two block-Toeplitz products
     assert took[TENSOR_CORES] >= 2 and took[SIMT] == 0
     got = sink.get_buffer()
     nw = (n - (k - 1)) // nb
@@ -1292,10 +1301,10 @@ def test_nccl_mesh_defaults_to_the_card(nccl):
 
 
 def test_nccl_channel_sharded_fir_fft_equals_unsharded(nccl):
-    """The combined branch on one rank equals the unsharded combined step
-    on the same operators bit for bit (same K1 launch, same operand),
-    over two steps; the carry is the last K-1 inputs."""
-    from pothoscomms_tpu_torch.parallel.chain import fir_fft_combined_step
+    """The sharded step on one rank takes fir_fft_chain's form (one_pass
+    at K=64 and 1024 bins) and equals fir_fft_chain's step bit for bit
+    (same K3 launch, same operand), over two steps; the carry is the last
+    K-1 inputs."""
     from pothoscomms_tpu_torch.parallel.mesh import (channel_sharded_fir_fft,
                                                      make_mesh)
 
@@ -1304,15 +1313,15 @@ def test_nccl_channel_sharded_fir_fft_equals_unsharded(nccl):
     taps = (rng.normal(size=K) + 1j * rng.normal(size=K)) / K
     mesh = make_mesh(1)
     run, init = channel_sharded_fir_fft(mesh, taps, NB)
-    gr, gi = (g.to(nccl) for g in stack_combined_operators(
-        *combined_fir_fft_operators(taps, NB, 128)))
-    h, h_ref = init(C), torch.zeros(C, K - 1, 2, device=nccl)
+    run_ref, h_ref = fir_fft_chain(taps, NB, C, T, device=nccl)
+    assert run.form == run_ref.form == "one_pass"
+    h = init(C)
     for _ in range(2):
         x = _normal(rng, C, T, 2).to(nccl)
-        before = cgemm.launches
+        k3, k1 = fir_fft_fused.launches, cgemm.launches
         spec, h = run(x, h)
-        assert cgemm.launches == before + 1
-        ref, h_ref = fir_fft_combined_step(x, h_ref, gr, gi, NB, K, 128)
+        assert (fir_fft_fused.launches - k3, cgemm.launches - k1) == (1, 0)
+        ref, h_ref = run_ref(x, h_ref)
         assert torch.equal(spec, ref)
         assert torch.equal(h, x[:, T - (K - 1):])
     assert (mesh.p2p_ops, mesh.collectives) == (0, 0)

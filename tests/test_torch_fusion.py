@@ -12,6 +12,7 @@ numpy oracle within 2e-2 absolute as the JAX test.
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import pothoscomms_tpu as jpkg
 import pothoscomms_tpu.core.fixtures as jfix
@@ -22,6 +23,8 @@ from pothoscomms_tpu_torch.core.fixtures import CollectorSink, FeederSource
 from pothoscomms_tpu_torch.core.fusion import DeviceChunk
 from pothoscomms_tpu_torch.kernels.cgemm import cgemm
 from pothoscomms_tpu_torch.kernels.fft import fft_c2c
+from pothoscomms_tpu_torch.kernels.fir_fft_fused import fir_fft_fused
+from pothoscomms_tpu_torch.parallel.chain import fir_fft_form
 
 torch.set_num_threads(1)
 
@@ -95,20 +98,29 @@ def test_fir_fft_fused_matches_streaming():
     np.testing.assert_allclose(a, b, atol=2e-2)
 
 
-def test_fir_fft_uses_combined_pair():
-    """The FIR->FFT peephole engages (combined operator, K1 on a card)
-    and the output matches the numpy oracle."""
+@pytest.mark.parametrize("nb,k,form", [(256, 17, "combined"),
+                                       (1024, 33, "one_pass")])
+def test_fir_fft_pair_takes_the_rules_form(nb, k, form):
+    """The FIR->FFT peephole engages as one FirFftChain step in the form
+    that fir_fft_form picks for its taps and bins (its span
+    pc.fir_fft.<form>: K1's combined product at 256 bins, K3's one-pass
+    step at 1024), and the output matches the numpy oracle."""
     rng = np.random.default_rng(1)
-    nb, k = 256, 17
     build = mk_fir_fft(nb=nb, k=k, seed=1)
     trng = np.random.default_rng(1)  # the taps mk_fir_fft made
     taps = (trng.normal(size=k) + 1j * trng.normal(size=k)) / k
     x = cplx(rng, 4 * THRESH)
-    before = (cgemm.launches, fft_c2c.launches)
-    sink, topo = run_chain(build, [x], fuse=True)
+    before = (cgemm.launches, fft_c2c.launches, fir_fft_fused.launches)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sink, topo = run_chain(build, [x], fuse=True)
     assert_engaged(topo)
     assert topo._segments[0].pair_engaged
-    assert (cgemm.launches, fft_c2c.launches) == before  # CPU: no launch
+    assert fir_fft_form(k, nb, 1, nb) == form
+    assert {e.name for e in prof.events()
+            if e.name.startswith("pc.fir_fft.")} == {"pc.fir_fft." + form}
+    # CPU: no launch
+    assert (cgemm.launches, fft_c2c.launches,
+            fir_fft_fused.launches) == before
     got = sink.get_buffer()
     # streaming FIR primes with the first K-1 samples (reference :305)
     y = np.convolve(x, taps, mode="full")[k - 1: len(x)]

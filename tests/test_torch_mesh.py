@@ -40,11 +40,12 @@ from pothoscomms_tpu.parallel.compiler import \
 from pothoscomms_tpu_torch.core.testing import (search_agreement,
                                                 sync_search_f64)
 from pothoscomms_tpu_torch.parallel import distributed, link, mesh
-from pothoscomms_tpu_torch.parallel.chain import fir_fft_chain
+from pothoscomms_tpu_torch.parallel.chain import fir_fft_chain, fir_fft_form
 from pothoscomms_tpu_torch.parallel.compiler import compile_chain
 from tests.test_torch_framing import TOL_JAX, assert_tolerances
-from tests.torch_mesh_ranks import (DECIMS, LINK_CASES, RESAMPLER_ML,
-                                    fm_blocks, grids, inputs, search_batch)
+from tests.torch_mesh_ranks import (CH_CASES, DECIMS, LINK_CASES,
+                                    RESAMPLER_ML, fm_blocks, grids, inputs,
+                                    search_batch)
 
 torch.set_num_threads(1)
 
@@ -102,26 +103,28 @@ def _jsteps(run, xs, carry):
     return ys, np.asarray(carry)
 
 
-@pytest.mark.parametrize("case,taps_key,nbins,decim", [
-    ("combined", "ch_taps", 128, 1), ("conv_decim", "ch_taps", 64, 2),
-    ("conv_long", "ch_long_taps", 128, 1)])
+@pytest.mark.parametrize("case,taps_key,nbins,decim,x_key", CH_CASES)
 def test_channel_sharded_fir_fft_matches_jax(job, case, taps_key, nbins,
-                                             decim):
-    """Both branches, two steps: the combined step (K1) and the conv FIR
-    with the FFT (K2), by decimation and by K > prev_pad + 1; no
+                                             decim, x_key):
+    """Each form, two steps: the one-pass step (K3) at 1024 bins, the
+    combined step (K1) and the conv FIR with the FFT (K2), by decimation
+    and by K > prev_pad + 1, each the form fir_fft_form picks; no
     collective on the way."""
     n, results = job
     d = inputs(n)
-    taps = d[taps_key]
+    taps, xs = d[taps_key], d[x_key]
     run, init = jmesh.channel_sharded_fir_fft(_jmesh(n, "ch"), taps, nbins,
                                               decim)
-    jys, _ = _jsteps(run, d["ch_x"], init(2 * n))
+    jys, _ = _jsteps(run, xs, init(2 * n))
     ys, carry, counts = results[0][f"ch_{case}"]
+    form = "conv" if case.startswith("conv") else case
+    assert form == fir_fft_form(len(taps), nbins, decim, decim * nbins)
+    assert all(r[f"ch_{case}_form"] == form for r in results)
     for y, jy in zip(ys, jys):
         assert y.shape == jy.shape
         assert _rel(y, jy) < 1e-4
-    k1 = len(taps) - 1
-    np.testing.assert_array_equal(carry, d["ch_x"][1][:, 512 - k1:])
+    k1, t = len(taps) - 1, xs.shape[2]
+    np.testing.assert_array_equal(carry, xs[1][:, t - k1:])
     assert all(r[f"ch_{case}"][2] == (0, 0) for r in results)
 
 

@@ -137,6 +137,7 @@ def test_topology_spans_nest_round_work_pull_step_post(tmp_path):
         assert pulls[0][2] <= steps[0][1] and steps[0][2] <= posts[0][1]
         within = inside(spans, steps[0])
         assert [c[0] for c in within] == ["pc.chain.FIRFilter+FFTBlock",
+                                          "pc.fir_fft.combined",
                                           "pc.op.combined_operand"]
         assert inside(spans, within[0]) == within[1:]
     assert quanta >= 1

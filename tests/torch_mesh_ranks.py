@@ -29,6 +29,12 @@ RESAMPLER_ML = ((2, 3), (3, 2), (1, 4))
 # the link cases of tests/test_link.py: (channels, bits, seed, noise)
 LINK_CASES = ((16, 64, 7, 0.0), (8, 64, 11, 0.02))
 SEARCH_CHANNELS = 8
+# the channel-sharded chain: (form, taps, nbins, decim, input), the form
+# parallel/chain.fir_fft_form picks for blocks of decim * nbins
+CH_CASES = (("one_pass", "ch_taps", 1024, 1, "ch_x1024"),
+            ("combined", "ch_taps", 128, 1, "ch_x"),
+            ("conv_decim", "ch_taps", 64, 2, "ch_x"),
+            ("conv_long", "ch_long_taps", 128, 1, "ch_x"))
 
 
 def _ctaps(rng, k):
@@ -52,8 +58,8 @@ def inputs(n):
     phase = np.cumsum(rng.uniform(-0.5, 0.5, size=(C, 2048)), axis=1)
     fm = np.stack([np.cos(phase), np.sin(phase)], -1).astype(np.float32)
     return {
-        # channel sharding: the combined step (K=9), the conv branch by
-        # decimation and by length (K=140 > prev_pad + 1)
+        # channel sharding: the one-pass and the combined step (K=9), the
+        # conv form by decimation and by length (K=140 > prev_pad + 1)
         "ch_taps": _ctaps(rng, 9), "ch_long_taps": _ctaps(rng, 140),
         "ch_x": _f32(rng, 2, C, 512, 2),
         # time sharding with C > 1 and K > 2: each rank's tail
@@ -64,6 +70,8 @@ def inputs(n):
         "r_taps": _ctaps(rng, 12), "r_x": _f32(rng, 2, 2, 24 * n, 2),
         "r_carry": _f32(rng, 2, 5, 2),
         "fm_x": np.stack([fm, 0.5 * fm]),
+        # the one-pass form needs whole 1024-bin windows
+        "ch_x1024": _f32(rng, 2, C, 1024, 2),
     }
 
 
@@ -120,13 +128,12 @@ def run(device):
     ch = make_mesh(n, "ch", device=device)
     tm = make_mesh(n, "t", device=device)
 
-    # channel-sharded FIR+FFT, both branches
-    for name, taps, nbins, decim in (("combined", d["ch_taps"], 128, 1),
-                                     ("conv_decim", d["ch_taps"], 64, 2),
-                                     ("conv_long", d["ch_long_taps"], 128, 1)):
-        fn, init = channel_sharded_fir_fft(ch, taps, nbins, decim)
-        res[f"ch_{name}"] = _steps(fn, ch, d["ch_x"], init(2 * n), ("ch",),
+    # channel-sharded FIR+FFT, each form the rule picks for it
+    for name, taps, nbins, decim, xs in CH_CASES:
+        fn, init = channel_sharded_fir_fft(ch, d[taps], nbins, decim)
+        res[f"ch_{name}"] = _steps(fn, ch, d[xs], init(2 * n), ("ch",),
                                    ("ch",))
+        res[f"ch_{name}_form"] = fn.form
 
     # time-sharded FIR, carry replicated
     for decim in DECIMS:
