@@ -224,8 +224,9 @@ Phases, one or more lines each:
      for bit, K3 within 1e-5 of its plain version, two channels within
      1e-4 of a float64 oracle, the carry exact, no collective, timed
      beside the unsharded step; (b) path
-     "sharded_fir_fft_conv": the same at decim 2 (the conv branch), K2 at
-     [16384, 1024] held to its plain version and the oracle; (c) paths
+     "sharded_fir_fft_conv": the same at decim 2 (the polyphase form: K4
+     once a step, then K2), K2 at [16384, 1024] held to its plain version
+     and the oracle; (c) paths
      "time_sharded_fir" and "grid_sharded_fir" on make_mesh(1, "t") and
      make_2d_mesh(1, 1) at [256, 131072], within 1e-4 of fir_multichannel
      on one device, the carry through an NCCL broadcast, P2P operations
@@ -961,7 +962,7 @@ def phase_27(c, T=N27, CL=256):
                         "unsharded_ms": ms_a1}
         del specs, hs, h_ref, ref, plain, uw
 
-        # -- (b) the conv branch (decim 2): conv FIR, then K2 ------------
+        # -- (b) decim 2, the polyphase form: K4, then K2 ---------------
         run_b, init_b = channel_sharded_fir_fft(mesh, taps, NB, decim=2)
         kern = complex_fir_kernel(taps).to(dev)
         c.zero_counts()
@@ -978,7 +979,7 @@ def phase_27(c, T=N27, CL=256):
         ora_b = max(oracle_rel(spec_b1, xh[0], xh[1], ch, 2)
                     for ch in (0, C - 1))
         ms_b = c.median_ms(lambda: run_b(xs[0], h0))
-        print(f"[27](b) channel_sharded_fir_fft decim=2 (the conv branch) on "
+        print(f"[27](b) channel_sharded_fir_fft decim=2 ({run_b.form}) on "
               f"{card}: spectra {tuple(spec_b1.shape)}, K2 at "
               f"{list(frames_b.shape[:2])}: /max|plain| {r_b:.3e} (limit "
               f"1e-5); float64 oracle /max|spectrum| {ora_b:.3e} (limit "
@@ -986,8 +987,9 @@ def phase_27(c, T=N27, CL=256):
               f"launches {launches['sharded_fir_fft_conv']}")
         check(r_b < 1e-5 and ora_b < 1e-4,
               "[27](b) disagrees with K2's plain version or the oracle")
-        check(launches["sharded_fir_fft_conv"]["fft_c2c"] == 2,
-              "[27](b) did not launch K2 once a step")
+        check(launches["sharded_fir_fft_conv"]["fft_c2c"] == 2
+              and launches["sharded_fir_fft_conv"]["fir_decim"] == 2,
+              "[27](b) did not launch K4 and K2 once a step")
         summary["b"] = {"oracle_rel": ora_b, "k2_rel_plain": r_b,
                         "step_ms": ms_b}
         del spec_b1, y_b, frames_b
@@ -1315,6 +1317,7 @@ def main() -> int:
         variant)
     from pothoscomms_tpu_torch.kernels.envelope import (envelope_rows,
                                                         envelope_rows_plain)
+    from pothoscomms_tpu_torch.kernels.fir_decim import fir_decim
     from pothoscomms_tpu_torch.kernels.fm_demod_dc import (fm_demod_dc,
                                                            fm_demod_dc_plain)
     from pothoscomms_tpu_torch.kernels.sync_search import (
@@ -1436,7 +1439,8 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     sources = ("cgemm", "fft", "fir_fft_fused", "stream_scale",
-               "layout_move", "envelope", "sync_search", "fm_demod_dc")
+               "layout_move", "envelope", "sync_search", "fm_demod_dc",
+               "fir_decim")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load, sources))
     print(f"[2] built {', '.join(s + '.cu' for s in sources)} with "
@@ -1573,7 +1577,8 @@ def main() -> int:
                 "fft_c2c": fft_c2c,
                 "fir_fft_fused": fir_fft_fused, "stream_scale": stream_scale,
                 "layout_move": layout_move, "envelope": envelope_rows,
-                "sync_search": sync_search, "fm_demod_dc": fm_demod_dc}
+                "sync_search": sync_search, "fm_demod_dc": fm_demod_dc,
+                "fir_decim": fir_decim}
 
     def zero_counts():
         for w in wrappers.values():

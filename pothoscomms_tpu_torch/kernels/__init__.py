@@ -4,6 +4,9 @@
 - :mod:`.fft`: K2, the batched complex FFT.
 - :mod:`.fir_fft_fused`: K3, the one-pass FIR+FFT step, and the
   one-pass chain built on it.
+- :mod:`.fir_decim`: K4, the decimating FIR with its carry, which
+  ``parallel/chain.FirFftChain``'s ``"polyphase"`` form runs before K2
+  (the JAX package's strided ``lax.conv``; not a Pallas port).
 - :mod:`.envelope`: E1, the attack/release envelope follower (the JAX
   package's envelope scans; not a Pallas port).
 - :mod:`.fm_demod_dc`: F1, the FM discriminator and the DC-removal

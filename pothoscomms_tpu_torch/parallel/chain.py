@@ -6,7 +6,7 @@ of the JAX package's ``parallel/chain.py``.
 :class:`FirFftChain` runs its answer, and the block API's FIR -> FFT pair
 (``core/fusion.py``), the channel-sharded chain (``parallel/mesh.py``)
 and the dry run's entry (``parallel/dryrun.py``) run a
-:class:`FirFftChain`. The four forms:
+:class:`FirFftChain`. The five forms:
 
 - ``one_pass`` (the main path; not in the JAX package's
   ``fir_fft_chain``): each window's FFT times H plus the transformed
@@ -18,6 +18,10 @@ and the dry run's entry (``parallel/dryrun.py``) run a
   complex product on the K1 kernel;
 - ``toeplitz``, the block-Toeplitz matmul FIR (K1) followed by the FFT
   (K2);
+- ``polyphase`` (not in the JAX package, which takes ``conv`` here):
+  with decimation, the decimating FIR on the K4 kernel
+  (``kernels/fir_decim.py``), computing only the outputs kept, followed
+  by the FFT (K2);
 - ``conv``, the ``conv1d`` FIR, with decimation, followed by the FFT
   (K2).
 
@@ -45,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pothoscomms_tpu_torch.core import placement
+from pothoscomms_tpu_torch.kernels import fir_decim as k4
 from pothoscomms_tpu_torch.kernels.cgemm import cgemm
 from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
     ONE_PASS_PP, fused_chain_consts, one_pass_step)
@@ -406,6 +411,8 @@ def fir_fft_form(k: int, nbins: int, decim: int, block: int) -> str:
       nbins)) and ``block`` is a multiple of ``nbins``;
     - else ``"toeplitz"`` when decim == 1, K <= 128 and ``block`` is a
       multiple of 128;
+    - ``"polyphase"`` (K4) where decim > 1 and its contract holds:
+      decim <= 64 and 1 <= K <= 256;
     - else ``"conv"``.
     """
     if decim == 1 and block % nbins == 0:
@@ -415,6 +422,8 @@ def fir_fft_form(k: int, nbins: int, decim: int, block: int) -> str:
             return "combined"
     if decim == 1 and k <= 128 and block % 128 == 0:
         return "toeplitz"
+    if k4.fits(k, decim):
+        return "polyphase"
     return "conv"
 
 
@@ -451,6 +460,10 @@ class FirFftChain(nn.Module):
         elif self.form == "toeplitz":
             t0, t1 = fir_toeplitz_matrices(taps)
             ops = dict(t0=t0, t1=t1)
+        elif self.form == "polyphase":
+            h = np.asarray(taps, np.complex128)
+            ops = dict(taps=torch.from_numpy(
+                np.stack([h.real, h.imag], -1).astype(np.float32)))
         else:
             ops = dict(kernel=complex_fir_kernel(taps))
         self.span = "pc.fir_fft." + self.form
@@ -472,6 +485,9 @@ class FirFftChain(nn.Module):
             if self.form == "toeplitz":
                 return fir_fft_step_mm(x, carry, self.t0, self.t1,
                                        self.nbins)
+            if self.form == "polyphase":
+                y, carry = k4.fir_decim(x, carry, self.taps, self.decim)
+                return _frames_fft(y, self.nbins), carry
             return fir_fft_step(x, carry, self.kernel, self.nbins,
                                 self.decim)
 

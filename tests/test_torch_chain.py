@@ -231,7 +231,8 @@ CHAIN_CASES = [
     (64, 1024, 1, "one_pass"),
     (100, 64, 1, "toeplitz"),   # nbins < 128 with long taps
     (200, 1024, 1, "conv"),     # K > 129
-    (64, 1024, 2, "conv"),      # decimation
+    (64, 1024, 2, "polyphase"),  # decimation (K4)
+    (257, 1024, 2, "conv"),     # decimation past K4's 256 taps
     (65, 1024, 1, "one_pass"),  # K - 1 = pp, the one-pass step's limit
     (66, 1024, 1, "combined"),  # K - 1 > pp
     (64, 512, 1, "combined"),   # nbins != 1024

@@ -38,6 +38,7 @@ from pothoscomms_tpu_torch.kernels.cgemm import (
 from pothoscomms_tpu_torch.kernels.envelope import (envelope_rows,
                                                     envelope_rows_plain)
 from pothoscomms_tpu_torch.kernels.fft import fft_c2c, fft_c2c_plain
+from pothoscomms_tpu_torch.kernels.fir_decim import fir_decim
 from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
     fir_fft_fused, fir_fft_fused_plain, make_fused_chain)
 from pothoscomms_tpu_torch.kernels.fm_demod_dc import (fm_demod_dc,
@@ -276,11 +277,12 @@ def test_fused_chain_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("k,nb,decim,form", [
     (64, 1024, 1, "one_pass"), (100, 64, 1, "toeplitz"),
-    (200, 1024, 1, "conv"), (64, 1024, 2, "conv"),
+    (200, 1024, 1, "conv"), (64, 1024, 2, "polyphase"),
     (65, 1024, 1, "one_pass"), (66, 1024, 1, "combined"),
     (64, 512, 1, "combined")])
 def test_chain_on_card_matches_cpu(dev, k, nb, decim, form):
-    """Each step of the one-pass form is one K3 launch and no K1 launch."""
+    """Each step of the one-pass form is one K3 launch and no K1 launch;
+    each of the polyphase form one K4 launch."""
     rng = np.random.default_rng(k + nb)
     C, T = 8, 4096
     taps = (rng.normal(size=k) + 1j * rng.normal(size=k)) / k
@@ -290,10 +292,13 @@ def test_chain_on_card_matches_cpu(dev, k, nb, decim, form):
     assert run_c.form == run_h.form == form
     for _ in range(3):
         x = _normal(rng, C, T, 2).to(dev)
-        k3, k1 = fir_fft_fused.launches, cgemm.launches
+        k3, k1, k4 = (fir_fft_fused.launches, cgemm.launches,
+                      fir_decim.launches)
         spec_c, carry_c = run_c(x, carry_c)
         if form == "one_pass":
             assert (fir_fft_fused.launches - k3, cgemm.launches - k1) == (1, 0)
+        if form == "polyphase":
+            assert fir_decim.launches - k4 == 1
         spec_h, carry_h = run_h(x.cpu(), carry_h)
         assert _rel(spec_c.cpu(), spec_h) < 1e-5
         assert torch.equal(carry_c.cpu(), carry_h)

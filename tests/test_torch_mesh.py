@@ -107,9 +107,9 @@ def _jsteps(run, xs, carry):
 def test_channel_sharded_fir_fft_matches_jax(job, case, taps_key, nbins,
                                              decim, x_key):
     """Each form, two steps: the one-pass step (K3) at 1024 bins, the
-    combined step (K1) and the conv FIR with the FFT (K2), by decimation
-    and by K > prev_pad + 1, each the form fir_fft_form picks; no
-    collective on the way."""
+    combined step (K1), the polyphase FIR (K4) by decimation and the conv
+    FIR by K > prev_pad + 1, each followed by the FFT (K2), each the form
+    fir_fft_form picks; no collective on the way."""
     n, results = job
     d = inputs(n)
     taps, xs = d[taps_key], d[x_key]

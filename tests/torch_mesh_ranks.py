@@ -33,7 +33,7 @@ SEARCH_CHANNELS = 8
 # parallel/chain.fir_fft_form picks for blocks of decim * nbins
 CH_CASES = (("one_pass", "ch_taps", 1024, 1, "ch_x1024"),
             ("combined", "ch_taps", 128, 1, "ch_x"),
-            ("conv_decim", "ch_taps", 64, 2, "ch_x"),
+            ("polyphase", "ch_taps", 64, 2, "ch_x"),
             ("conv_long", "ch_long_taps", 128, 1, "ch_x"))
 
 
@@ -59,7 +59,8 @@ def inputs(n):
     fm = np.stack([np.cos(phase), np.sin(phase)], -1).astype(np.float32)
     return {
         # channel sharding: the one-pass and the combined step (K=9), the
-        # conv form by decimation and by length (K=140 > prev_pad + 1)
+        # polyphase form by decimation, the conv form by length (K=140 >
+        # prev_pad + 1)
         "ch_taps": _ctaps(rng, 9), "ch_long_taps": _ctaps(rng, 140),
         "ch_x": _f32(rng, 2, C, 512, 2),
         # time sharding with C > 1 and K > 2: each rank's tail
