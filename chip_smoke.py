@@ -276,6 +276,7 @@ bench suite must go to its tensor-core variant.
 """
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -2129,13 +2130,17 @@ def main() -> int:
     @contextlib.contextmanager
     def watched(module, name, note):
         """While a path is driven, ``note(args, result)`` after every call
-        of ``module.name``; the call itself is the original's."""
+        of ``module.name``; the call itself is the original's, and the
+        original's attributes (its counters) are the wrapper's too."""
+        original = getattr(module, name)
+
+        @functools.wraps(original)
         def noting(*args, **kwargs):
-            out = saved(*args, **kwargs)
+            out = original(*args, **kwargs)
             note(args, out)
             return out
 
-        with swapped(module, name, noting) as saved:
+        with swapped(module, name, noting):
             yield
 
     def note_e1(args, out):

@@ -542,6 +542,8 @@ class IIRFilter(Block):
     # block lengths tried (largest dividing the quantum wins); each is a
     # one-time host precompute and an L x L operator on the device
     _BLOCK_LS = (256, 128, 64, 32)
+    # steps of every fused core that took the per-sample fallback
+    fallback_steps = 0
 
     def device_core(self, channels: int, device=None):
         """Fused-chain core on ``device`` (default: the block's): the
@@ -551,7 +553,8 @@ class IIRFilter(Block):
         DF-II-T). Falls back to a per-sample scan when no block length
         divides the quantum or the float32 operators are not finite (an
         unstable filter): that is a Python loop of T steps, slow on a
-        card."""
+        card. ``IIRFilter.fallback_steps`` counts the steps that take
+        it."""
         bq = self._b / self._a[0]
         aq = self._a / self._a[0]
         order = max(self._b.size, self._a.size, 2) - 1
@@ -585,6 +588,7 @@ class IIRFilter(Block):
             return ops_cache[L]
 
         def seq_step(carry, x):
+            IIRFilter.fallback_steps += 1
             z = carry
             bcol = bp[1:].reshape((order,) + (1,) * (x.dim() - 1))
             acol = ap[1:].reshape((order,) + (1,) * (x.dim() - 1))

@@ -19,6 +19,7 @@ shifted right by half the accumulator width.
 
 from __future__ import annotations
 
+import collections
 from typing import Tuple
 
 import numpy as np
@@ -28,6 +29,7 @@ from pothoscomms_tpu_torch.core.dtypes import DType
 from pothoscomms_tpu_torch.core.qformat import Q_ACCUMULATOR, float_to_q
 from pothoscomms_tpu_torch.kernels.cgemm import cgemm
 from pothoscomms_tpu_torch.kernels.envelope import envelope_rows
+from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 
 def _polyphase_matrix(taps: np.ndarray, L: int) -> Tuple[np.ndarray, int]:
@@ -202,13 +204,22 @@ def rational_fir_mm(x: torch.Tensor, history: torch.Tensor, gr, gi,
     (gr, gi) the stacked [T1; T0] of :func:`stack_rational_operators`, on
     x's device. Returns (y [C, T*b_out//b_in, 2], new_history),
     new_history the last K-1 inputs. The block and its tail are one
-    operand against [T1; T0]: one product on the K1 kernel."""
+    operand against [T1; T0]: one product on the K1 kernel.
+
+    The operand's build runs inside the span ``pc.op.rational_operand``;
+    ``rational_fir_mm.by_shape`` counts the calls at each (C, T, b_in,
+    b_out, K-1)."""
     c, t, _ = x.shape
     if t % b_in:
         raise ValueError(f"T={t} is not a multiple of the block {b_in}")
-    a = rational_operand(x, history, b_in, gr.shape[0] - b_in)
+    with annotate("pc.op.rational_operand"):
+        a = rational_operand(x, history, b_in, gr.shape[0] - b_in)
     y = cgemm(a, gr, gi).reshape(c, (t // b_in) * b_out, 2)
+    rational_fir_mm.by_shape[(c, t, b_in, b_out, history.shape[1])] += 1
     return y, x[:, t - history.shape[1]:].contiguous()
+
+
+rational_fir_mm.by_shape = collections.Counter()
 
 
 # ---------------------------------------------------------------------- #
@@ -328,16 +339,28 @@ def iir_blocked_step(xp: torch.Tensor, z0: torch.Tensor, Hmat, Wz, M, G,
     products (plain float32 ``torch.matmul`` / ``einsum``; TF32 stays
     off) and the log-depth block scan over T/L blocks. ``powers``: the
     scan's M^(2^j) for at least T/L blocks (:func:`iir_scan_powers`),
-    float32 on xp's device."""
+    float32 on xp's device.
+
+    The block products run inside the span ``pc.op.iir_products`` (one
+    before the scan, one after), the scan inside ``pc.op.iir_scan``;
+    ``iir_blocked_step.by_shape`` counts the calls at each (P, T, L,
+    order), which sets the scan's rounds: ``(T // L - 1).bit_length()``."""
     P, t = xp.shape
     nb = t // L
     xb = xp.reshape(P, nb, L)
-    u = torch.einsum("pnl,ol->nop", xb, G)                 # [nb, O, P]
-    z_next = iir_block_scan(u, z0, M, powers)               # z_{k+1}
-    zs = torch.cat([z0[None], z_next[:-1]])                 # z_k per block
-    y = (torch.einsum("jo,kop->pkj", Wz, zs)
-         + torch.einsum("jm,pkm->pkj", Hmat, xb))
+    with annotate("pc.op.iir_products"):
+        u = torch.einsum("pnl,ol->nop", xb, G)             # [nb, O, P]
+    with annotate("pc.op.iir_scan"):
+        z_next = iir_block_scan(u, z0, M, powers)           # z_{k+1}
+    with annotate("pc.op.iir_products"):
+        zs = torch.cat([z0[None], z_next[:-1]])             # z_k per block
+        y = (torch.einsum("jo,kop->pkj", Wz, zs)
+             + torch.einsum("jm,pkm->pkj", Hmat, xb))
+    iir_blocked_step.by_shape[(P, t, L, z0.shape[0])] += 1
     return y.reshape(P, t), z_next[-1]
+
+
+iir_blocked_step.by_shape = collections.Counter()
 
 
 # ---------------------------------------------------------------------- #
