@@ -114,17 +114,25 @@ Phases, one or more lines each:
      one-pass steps, and K1's at each R's shape;
  18. path "resampler_chain": compile_chain([FIR 3:2 (60 complex taps),
      IIR (default biquad)], 16) at T = 2^19 for three steps, and at
-     T = 768 for two (the IIR then blocks at 128, not 256): one K1
-     launch a step at [32768, 288] x [288, 384]; every step against the
+     T = 768 for two: one K1 launch a step at [32768, 288] x [288, 384]
+     and one I1 call (iir_df2t: two launches where its plan cuts the 16
+     rows into segments, one else), I1 held against its plain version at
+     both launch shapes (1e-5 of max |y|); every step against the
      same chain on K1's plain version (1e-5 of max), two channels of the
      three steps against a float64 oracle (the polyphase sum, then
      scipy's lfilter: resampler 1e-4 of max |y|, IIR output 2e-4
      absolute); the step's time and Msamples/s, the FIR and IIR cores
-     alone and the IIR's block scan's share;
+     alone and I1's share of the step's device time; then I1 alone at the
+     resampler bank's launch (256 x 196608 complex samples, the elliptic
+     order-6 low-pass of benchmark/configs/resampler_fir99_3to2_ellip6)
+     against its plain version and scipy's lfilter (3e-5 of max |y|),
+     timed by events and on the card beside its bound (bytes) and its
+     plain version;
  19. path "resampler_block_api": FIRDesigner -> FIR 3:2 -> IIR <-
      IIRDesigner (tapsChanged -> setTaps) with feeder and collector on
      Topology(device="cuda:0"), fed 2^24 + 12345 samples: the segment
-     engages for one 2^24 pull (one K1 launch), the rest drains
+     engages for one 2^24 pull (one K1 launch, one I1 call of two
+     launches, its one row cut into segments), the rest drains
      streaming; the output length, windows at the start, inside the
      pull, at its boundary and at the end against the float64 oracle
      (atol 2e-4), and the wall time from commit() to wait_inactive();
@@ -1321,6 +1329,10 @@ def main() -> int:
     from pothoscomms_tpu_torch.kernels.fir_decim import fir_decim
     from pothoscomms_tpu_torch.kernels.fm_demod_dc import (fm_demod_dc,
                                                            fm_demod_dc_plain)
+    from pothoscomms_tpu_torch.blocks import filter as filter_mod
+    from pothoscomms_tpu_torch.kernels.iir_df2t import (iir_df2t,
+                                                        iir_df2t_plain)
+    from pothoscomms_tpu_torch.kernels.iir_df2t import plan as i1_plan
     from pothoscomms_tpu_torch.kernels.sync_search import (
         card_plan, ops_per_offset, sync_search, sync_search_plain, work)
     from pothoscomms_tpu_torch.kernels.layout_move import (
@@ -1441,7 +1453,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = ("cgemm", "fft", "fir_fft_fused", "stream_scale",
                "layout_move", "envelope", "sync_search", "fm_demod_dc",
-               "fir_decim")
+               "fir_decim", "iir_df2t")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load, sources))
     print(f"[2] built {', '.join(s + '.cu' for s in sources)} with "
@@ -1579,7 +1591,7 @@ def main() -> int:
                 "fir_fft_fused": fir_fft_fused, "stream_scale": stream_scale,
                 "layout_move": layout_move, "envelope": envelope_rows,
                 "sync_search": sync_search, "fm_demod_dc": fm_demod_dc,
-                "fir_decim": fir_decim}
+                "fir_decim": fir_decim, "iir_df2t": iir_df2t}
 
     def zero_counts():
         for w in wrappers.values():
@@ -2622,7 +2634,7 @@ def main() -> int:
     step18s, carry18s = compile_chain(config3_blocks(taps18), CR, device=dev)
     xs18 = [unit_complex(CR, TR) for _ in range(3)]
     xs18s = [unit_complex(CR, TRS) for _ in range(2)]
-    iir_ls, fir_out18 = [], []
+    i1_launched, fir_out18 = [], []
 
     def note_fir(args, out):
         if args[0].shape[1] == TR:
@@ -2630,8 +2642,8 @@ def main() -> int:
 
     torch.cuda.synchronize()
     zero_counts()
-    with watched(fops, "iir_blocked_step", lambda args, out: iir_ls.append(
-            (tuple(args[0].shape), args[6]))), \
+    with watched(filter_mod, "iir_df2t", lambda args, out: i1_launched.append(
+            (tuple(args[0].shape), len(args[2]) - 1))), \
             watched(fops, "rational_fir_mm", note_fir):
         carries18, ys18 = [carry18], []
         for x in xs18:
@@ -2646,16 +2658,42 @@ def main() -> int:
     launches18 = read_counts()
     print(f"[18] resampler chain compile_chain([FIR 3:2 (60 complex taps), "
           f"IIR (default biquad)], {CR}) at T={TR} (3 steps) and T={TRS} "
-          f"(2 steps): launches {launches18}; the IIR's blocked steps "
-          f"(planes x samples, block length): {sorted(set(iir_ls))}")
+          f"(2 steps): launches {launches18}; the IIR's I1 launches "
+          f"(shape, order): {sorted(set(i1_launched))}")
     check(launches18["cgemm"] == 5
           and launches18["cgemm_by_variant"][TENSOR_CORES] == 5
           and launches18["tf32_operator"] == 5,
           "the resampler chain did not launch cgemm once a step on the "
           "tensor cores")
-    check(sorted(set(iir_ls)) == [((2 * CR, TRS * LR // MR), 128),
-                                  ((2 * CR, TR * LR // MR), 256)],
-          f"the IIR took blocks {sorted(set(iir_ls))}")
+    # I1 launches once a call, twice where it cuts the rows into segments
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def i1_launches(rows, t):
+        return 2 if i1_plan(2, t, 2, rows, sms).segs > 1 else 1
+
+    want18 = 3 * i1_launches(CR, TR * LR // MR) \
+        + 2 * i1_launches(CR, TRS * LR // MR)
+    check(launches18["iir_df2t"] == want18 and len(i1_launched) == 5
+          and sorted(set(i1_launched)) == [((CR, TRS * LR // MR, 2), 2),
+                                           ((CR, TR * LR // MR, 2), 2)],
+          f"the IIR launched I1 {launches18['iir_df2t']} times (not "
+          f"{want18}) in {len(i1_launched)} calls at "
+          f"{sorted(set(i1_launched))}, not one call a step")
+    # I1 at both launch shapes against its plain version (the blocked
+    # form on the card), from a nonzero state
+    i1_abs = 0.0
+    for shape, _ in sorted(set(i1_launched)):
+        x_, z_ = on_card(normal(*shape)), on_card(normal(2, CR, 2))
+        yk, zk = iir_df2t(x_, z_, *iir_ba)
+        yp, zp = iir_df2t_plain(x_, z_, *iir_ba)
+        d, r = errs(yk, yp)
+        dz = errs(zk, zp)[1]
+        i1_abs = max(i1_abs, d)
+        print(f"[18] iir_df2t at {list(shape)} vs its plain version: "
+              f"max|d| {d:.3e}, /max|y| {r:.3e}, state /max|z| {dz:.3e} "
+              f"(limit 1e-5)")
+        check(r < 1e-5 and dz < 1e-5,
+              f"iir_df2t at {shape} disagrees with its plain version")
     for label, xs_, ys_, cs_, stp, t_ in (
             (f"T={TR}", xs18, ys18, carries18, step18, TR),
             (f"T={TRS}", xs18s, ys18s, carries18s, step18s, TRS)):
@@ -2697,7 +2735,7 @@ def main() -> int:
               f"resampler chain channel {ch} disagrees with the oracle")
     del fir_out18, fir18, out18, xh18
     # where a step's time goes: the step, the FIR core and the IIR core
-    # alone, and the IIR's block scan at the step's shapes
+    # alone, and I1's share of the step
     step18_ms = median_ms(lambda: step18(xs18[0], carry18))
     step18_dev_ms = device_ms(step18, [(xs18[0], carry18)],
                               floor_ms=probe_stream_ceiling.bytes_bound_ms(
@@ -2707,14 +2745,6 @@ def main() -> int:
     y_fir = fir_core(carry18[0], xs18[0])[1]
     fir_core_ms = median_ms(lambda: fir_core(carry18[0], xs18[0]))
     iir_core_ms = median_ms(lambda: iir_core(iir_carry, y_fir))
-    ops18 = fops.iir_blocked_operators(*iir_ba, 256)
-    nb18 = TR * LR // MR // 256
-    u18 = on_card(normal(nb18, 2, 2 * CR))
-    z18 = on_card(normal(2, 2 * CR))
-    m18 = on_card(ops18[2].astype(np.float32))
-    p18 = on_card(fops.iir_scan_powers(ops18[2], nb18).astype(np.float32))
-    scan_ms = median_ms(lambda: fops.iir_block_scan(u18, z18, m18, p18))
-    scan_dev_ms = device_ms(fops.iir_block_scan, [(u18, z18, m18, p18)])
     iir_dev_ms = device_ms(iir_core, [(iir_carry, y_fir)])
     rows18 = CR * TR // 256
     a18 = fops.rational_operand(xs18[0], carry18[0], 256, 32)
@@ -2727,21 +2757,19 @@ def main() -> int:
           f"{step18_ms:.3f} ms ({CR * TR / step18_ms / 1e3:.1f} Msamples/s "
           f"in, {f4(step18_dev_ms)} ms on the card); FIR core "
           f"{fir_core_ms:.3f} ms, IIR core {iir_core_ms:.3f} ms "
-          f"({f4(iir_dev_ms)} on the card); the IIR's block scan alone "
-          f"({nb18} blocks, {int(np.ceil(np.log2(nb18)))} rounds) "
-          f"{scan_ms:.3f} ms by events ({f4(scan_dev_ms)} on the card)")
-    # the scan's share of the step, from one trace of three steps: its
-    # kernels are those launched inside its range
+          f"({f4(iir_dev_ms)} on the card)")
+    # I1's share of the step, from one trace of three steps: its kernel is
+    # the one launched inside its range
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    scan18 = fops.iir_block_scan
 
-    def scan_ranged(*args):
-        with record_function("iir_block_scan"):
-            return scan18(*args)
+    @functools.wraps(iir_df2t)
+    def i1_ranged(*args):
+        with record_function("i1_launch"):
+            return iir_df2t(*args)
 
     torch.cuda.synchronize()
-    with swapped(fops, "iir_block_scan", scan_ranged), profile(
+    with swapped(filter_mod, "iir_df2t", i1_ranged), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         c = carry18
@@ -2750,27 +2778,60 @@ def main() -> int:
         torch.cuda.synchronize()
         trace_ms = (time.perf_counter() - t0) * 1e3 / 3
     evs = prof.events()
-    ranges18 = [e for e in evs if e.name == "iir_block_scan"
+    ranges18 = [e for e in evs if e.name == "i1_launch"
                 and e.device_type == DeviceType.CPU]
     step_card_ms = sum(e.device_time_total for e in evs
                        if e.device_type == DeviceType.CUDA
-                       and e.name != "iir_block_scan") / 3e3
-    scan_card_ms = sum(e.device_time_total for e in ranges18) / 3e3
-    scan_host_ms = sum(e.cpu_time_total for e in ranges18) / 3e3
+                       and e.name != "i1_launch") / 3e3
+    i1_card_ms = sum(e.device_time_total for e in ranges18) / 3e3
+    i1_host_ms = sum(e.cpu_time_total for e in ranges18) / 3e3
     check(len(ranges18) == 3 and step_card_ms > 0,
-          f"the trace holds {len(ranges18)} scans (3 expected) and "
+          f"the trace holds {len(ranges18)} I1 launches (3 expected) and "
           f"{step_card_ms} ms of kernels")
-    of_core = "not measured" if iir_dev_ms is None \
-        else f"{scan_card_ms / iir_dev_ms:.1%}"
     print(f"[18] on {card}: trace of 3 resampler steps, per step: "
           f"{trace_ms:.3f} ms of wall (profiler on), {step_card_ms:.4f} ms "
-          f"of kernels ({step_card_ms / trace_ms:.1%} busy); the block "
-          f"scan's kernels {scan_card_ms:.4f} ms "
-          f"({scan_card_ms / step_card_ms:.1%} of the step's device time, "
-          f"{of_core} of the IIR core's on the card), its host time "
-          f"{scan_host_ms:.3f} ms ({scan_host_ms / trace_ms:.1%} of the "
-          f"step's wall)")
-    del xs18, xs18s, ys18, ys18s, carries18, carries18s, y_fir, a18, u18
+          f"of kernels ({step_card_ms / trace_ms:.1%} busy); I1 "
+          f"{i1_card_ms:.4f} ms ({i1_card_ms / step_card_ms:.1%} of the "
+          f"step's device time), its host time {i1_host_ms:.3f} ms "
+          f"({i1_host_ms / trace_ms:.1%} of the step's wall)")
+    del xs18, xs18s, ys18, ys18s, carries18, carries18s, y_fir, a18
+
+    # I1 alone at the resampler bank's launch: 256 rows of 196608 complex
+    # samples through the elliptic order-6 low-pass, from a nonzero state
+    import scipy.signal
+    RB, TB = 256, 131072 * LR // MR
+    bb, ab = scipy.signal.ellip(6, 0.1, 60, 0.3)
+    ba_b = (bb / ab[0], ab / ab[0])
+    pool_b = [(on_card(normal(RB, TB, 2)), on_card(0.1 * normal(6, RB, 2)))
+              + ba_b for _ in range(4)]
+    yk, zk = iir_df2t(*pool_b[0])
+    yp, zp = iir_df2t_plain(*pool_b[0])
+    _, i1_rel = errs(yk, yp)
+    i1_zrel = errs(zk, zp)[1]
+    xo = pool_b[0][0][[0, RB - 1]].double().cpu().numpy()
+    zo = pool_b[0][1][:, [0, RB - 1]].double().cpu().numpy()
+    yo = yk[[0, RB - 1]].double().cpu().numpy()
+    i1_oracle = max(
+        np.abs(yo[r, :, p] - lfilter(*ba_b, xo[r, :, p], zi=zo[:, r, p])[0])
+        .max() / np.abs(yo[r, :, p]).max() for r in range(2) for p in range(2))
+    i1_abs = max(i1_abs, errs(yk, yp)[0])
+    del yk, zk, yp, zp
+    i1_bound = bound(2 * RB * TB * 8 + 2 * RB * 6 * 8, 0)
+    i1_ms = event_ms(iir_df2t, pool_b, calls=20)
+    i1_device_ms = device_ms(iir_df2t, pool_b, per_call=1,
+                             floor_ms=i1_bound[0])
+    i1_plain_ms = median_ms(lambda: iir_df2t_plain(*pool_b[0]))
+    print(f"[18] iir_df2t at [{RB},{TB},2] order 6 (elliptic) vs its plain "
+          f"version: /max|y| {i1_rel:.3e}, state {i1_zrel:.3e}; vs scipy's "
+          f"lfilter on rows 0 and {RB - 1}: /max|y| {i1_oracle:.3e} (limit "
+          f"3e-5)")
+    check(i1_rel < 3e-5 and i1_zrel < 3e-5 and i1_oracle < 3e-5,
+          "iir_df2t at the resampler bank's launch disagrees")
+    print(f"[18] on {card}: iir_df2t [{RB},{TB},2] order 6 {i1_ms:.4f} ms "
+          f"({f4(i1_device_ms)} on the card), bound {i1_bound[0]:.4f} ms by "
+          f"{i1_bound[1]} ({share(i1_bound[0], i1_device_ms)} of it), plain "
+          f"version {i1_plain_ms:.3f} ms")
+    del pool_b
 
     # -- 19. path "resampler_block_api": config #3 through the block API -
     n19 = (1 << 24) + 12345
@@ -2847,6 +2908,10 @@ def main() -> int:
     shapes19 = [(tuple(a.shape[:2]), tuple(g.shape)) for a, g, _ in
                 k1_calls19]
     print(f"[19] K1 launches (operand, operator planes): {shapes19}")
+    want19 = i1_launches(1, (1 << 24) * LR // MR)
+    check(launches19["iir_df2t"] == want19,
+          f"the config #3 block path launched I1 {launches19['iir_df2t']} "
+          f"times, not {want19} (one call) for its 2^24 pull")
     check(launches19["cgemm"] == 1
           and launches19["cgemm_by_variant"][TENSOR_CORES] == 1
           and shapes19 == [(((1 << 24) // 256, 288), (288, 384))],
@@ -3778,7 +3843,8 @@ def main() -> int:
         "layout_move": bound(2 * 4096 * 1024 * 4, 0),
         "envelope": e1_bound,
         "sync_search": s1_bound,
-        "fm_demod_dc": f1_bound}
+        "fm_demod_dc": f1_bound,
+        "iir_df2t": i1_bound}
     # name: (source, TPU kernel, max |d|, ms, plain ms, one library call's
     # ms or None where no single PyTorch call computes the function)
     measured = {
@@ -3804,7 +3870,10 @@ def main() -> int:
                         " freq_demod_planar and the DC core of pothoscomms_tpu"
                         "/blocks/filter.py DCRemoval.device_core (XLA ops, "
                         "not a Pallas kernel)", f1_abs, f1_ms, f1_plain_ms,
-                        None)}
+                        None),
+        "iir_df2t": ("iir_df2t.cu", "pothoscomms_tpu/ops/filter.py "
+                     "iir_blocked_step (XLA ops, not a Pallas kernel)",
+                     i1_abs, i1_ms, i1_plain_ms, None)}
     kernels = []
     for name, (src, where, err, ms, plain_ms, lib_ms) in measured.items():
         paths = {p: c[name] for p, c in by_path.items()}

@@ -11,7 +11,8 @@ rational FIR (decimation or interpolation above 1) is the blocked
 rational operator (``ops/filter.rational_fir_mm``, one K1 product a
 quantum), its carry the K-1 input history plus any sub-M input-phase
 residue. The IIR filter streams on the host in float64 / complex128 and
-fuses as the blocked state-space core (``ops/filter.iir_blocked_step``).
+fuses as the I1 kernel on a card (``kernels/iir_df2t.py``), elsewhere as
+the blocked state-space core (``ops/filter.iir_blocked_step``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from pothoscomms_tpu_torch.design import (
     remez_estimate_num_taps,
     remez_estimate_weight,
 )
+from pothoscomms_tpu_torch.kernels.iir_df2t import engages as i1_engages
+from pothoscomms_tpu_torch.kernels.iir_df2t import iir_df2t
 from pothoscomms_tpu_torch.ops import filter as fops
 
 
@@ -465,8 +468,8 @@ class FIRFilter(Block):
 class IIRFilter(Block):
     """Direct-form II transposed IIR filter; taps are the [b...; a...]
     halves. Streaming runs on the host in float64 / complex128 (spuce
-    parity); the fused core is the blocked state-space form on the
-    topology's device."""
+    parity); the fused core is I1 on a card, the blocked state-space form
+    elsewhere."""
 
     def __init__(self, dtype="complex_float32"):
         super().__init__()
@@ -539,18 +542,21 @@ class IIRFilter(Block):
         port.consume(n)
         self.output(0).post(out)
 
-    # block lengths tried (largest dividing the quantum wins); each is a
-    # one-time host precompute and an L x L operator on the device
-    _BLOCK_LS = (256, 128, 64, 32)
     # steps of every fused core that took the per-sample fallback
     fallback_steps = 0
 
     def device_core(self, channels: int, device=None):
-        """Fused-chain core on ``device`` (default: the block's): the
-        blocked state-space IIR over planar float32 (ops/filter.py
+        """Fused-chain core on ``device`` (default: the block's). On a card
+        a step runs the I1 kernel (kernels/iir_df2t.py: the DF-II-T
+        recurrence over the interleaved samples in one launch) where
+        ``iir_df2t.engages`` holds (its ``fits`` at the order and the
+        step's T; tables finite in float32, on which the kernel does not
+        stray: ``iir_df2t.stray``). Elsewhere, on the CPU too, and for
+        taps I1 refuses, the blocked state-space IIR over planar float32
+        (ops/filter.py
         iir_blocked_operators / iir_blocked_step: block products and a
         log-depth scan over T/L block states; an exact reformulation of
-        DF-II-T). Falls back to a per-sample scan when no block length
+        DF-II-T); it falls back to a per-sample scan when no block length
         divides the quantum or the float32 operators are not finite (an
         unstable filter): that is a Python loop of T steps, slow on a
         card. ``IIRFilter.fallback_steps`` counts the steps that take
@@ -563,6 +569,9 @@ class IIRFilter(Block):
         ap = torch.zeros(order + 1)
         bp[: bq.size] = torch.from_numpy(bq.astype(np.float32))
         ap[: aq.size] = torch.from_numpy(aq.astype(np.float32))
+        # I1's taps in float64 (its recurrence runs their float32 values)
+        bd, ad = np.zeros(order + 1), np.zeros(order + 1)
+        bd[: bq.size], ad[: aq.size] = bq, aq
         bp, ap = bp.to(dev), ap.to(dev)
         is_cplx = self.dtype.is_complex
         shape = (order, channels, 2) if is_cplx else (order, channels)
@@ -570,58 +579,29 @@ class IIRFilter(Block):
         ops_cache: dict = {}
 
         def get_ops(L):
-            """(Hmat, Wz, M, G, the scan's M^(2^j) for up to 2^31 blocks)
-            on the device, or None."""
+            """The blocked form's float32 operators for L on the device,
+            or None (not finite: fall back to the per-sample scan)."""
             if L not in ops_cache:
-                ops = fops.iir_blocked_operators(bq, aq, L)
-                # unstable/marginal filters overflow the A^j powers: fall
-                # back to the per-sample scan rather than run inf/NaN
-                # operators. Checked AFTER the f32 cast: finite f64 values
-                # can still overflow float32.
-                with np.errstate(over="ignore", invalid="ignore"):
-                    ops32 = tuple(m.astype(np.float32) for m in ops) + (
-                        fops.iir_scan_powers(ops[2], 1 << 31)
-                        .astype(np.float32),)
-                ok = all(np.all(np.isfinite(m)) for m in ops32[:4])
-                ops_cache[L] = tuple(torch.from_numpy(m).to(dev)
-                                     for m in ops32) if ok else None
+                ops32 = fops.iir_blocked_operators32(bq, aq, L)
+                ops_cache[L] = None if ops32 is None else tuple(
+                    torch.from_numpy(m).to(dev) for m in ops32)
             return ops_cache[L]
 
-        def seq_step(carry, x):
-            IIRFilter.fallback_steps += 1
-            z = carry
-            bcol = bp[1:].reshape((order,) + (1,) * (x.dim() - 1))
-            acol = ap[1:].reshape((order,) + (1,) * (x.dim() - 1))
-            ys = []
-            for n in range(x.shape[1]):
-                xn = x[:, n]
-                yn = bp[0] * xn + z[0]
-                z = bcol * xn[None] - acol * yn[None] + torch.cat(
-                    [z[1:], torch.zeros_like(z[:1])])
-                ys.append(yn)
-            return z, torch.stack(ys, dim=1)
-
         def step(carry, x):
-            t = x.shape[1]
-            L = next((c for c in self._BLOCK_LS if t % c == 0 and t >= c),
-                     None)
+            # I1 takes rows [R, T, W]: a real row is one plane
+            xs, zs = (x, carry) if is_cplx else (x[..., None],
+                                                 carry[..., None])
+            if i1_engages(xs, bd, ad):
+                y, z = iir_df2t(xs.contiguous(), zs.contiguous(), bd, ad)
+                return (z, y) if is_cplx else (z[..., 0], y[..., 0])
+            L = fops.iir_block_length(x.shape[1])
             ops = get_ops(L) if L is not None else None
             if ops is None:
-                return seq_step(carry, x)
-            H, Wz, M, G, powers = ops
-            C = x.shape[0]
-            if is_cplx:
-                # planes ordered (c0re, c0im, c1re, ...): row-major over
-                # the trailing (re, im) axis in both x and carry
-                xp = x.permute(0, 2, 1).reshape(C * 2, t)
-                z0 = carry.reshape(order, C * 2)
-            else:
-                xp, z0 = x, carry
-            yp, zf = fops.iir_blocked_step(xp, z0, H, Wz, M, G, L, powers)
-            if is_cplx:
-                return (zf.reshape(order, C, 2),
-                        yp.reshape(C, 2, t).permute(0, 2, 1).contiguous())
-            return zf, yp
+                IIRFilter.fallback_steps += 1
+                y, z = fops.iir_df_rows(x, carry, bp, ap)
+                return z, y
+            y, z = fops.iir_blocked_rows(x, carry, ops, L)
+            return z, y
 
         return carry0, step
 

@@ -13,6 +13,9 @@
   cascade in one pass (the JAX package's XLA ops for the two cores; not
   a Pallas port); ``parallel/compiler.compile_chain`` takes it for a
   FreqDemod followed by a float32 DCRemoval.
+- :mod:`.iir_df2t`: I1, the DF-II-T IIR recurrence over rows with its
+  state (the JAX package's XLA ``iir_blocked_step``; not a Pallas port);
+  ``blocks/filter.IIRFilter``'s fused core takes it on a card.
 - :mod:`.sync_search`: S1, the frame-sync search over every offset of
   every channel (the JAX package's XLA search program; not a Pallas
   port).

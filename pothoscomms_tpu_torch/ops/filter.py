@@ -363,6 +363,72 @@ def iir_blocked_step(xp: torch.Tensor, z0: torch.Tensor, Hmat, Wz, M, G,
 iir_blocked_step.by_shape = collections.Counter()
 
 
+# block lengths of the blocked form, tried in order (the largest dividing
+# a quantum wins); each is a one-time host precompute and an L x L
+# operator on the device
+IIR_BLOCK_LENGTHS = (256, 128, 64, 32)
+
+
+def iir_block_length(t: int):
+    """The first of ``IIR_BLOCK_LENGTHS`` that divides ``t`` samples, or
+    None."""
+    return next((c for c in IIR_BLOCK_LENGTHS if t % c == 0 and t >= c),
+                None)
+
+
+def iir_blocked_operators32(b, a, L: int):
+    """The blocked form's operators for block length ``L`` in float32
+    (:func:`iir_blocked_operators`, then the scan's M^(2^j) for up to
+    2^31 blocks): (Hmat, Wz, M, G, powers) as numpy arrays, or None where
+    one of the first four is not finite in float32 (an unstable or
+    marginal filter overflows the A^j powers; checked after the cast,
+    since finite float64 values can still overflow float32)."""
+    ops = iir_blocked_operators(b, a, L)
+    with np.errstate(over="ignore", invalid="ignore"):
+        ops32 = tuple(m.astype(np.float32) for m in ops) + (
+            iir_scan_powers(ops[2], 1 << 31).astype(np.float32),)
+    ok = all(np.all(np.isfinite(m)) for m in ops32[:4])
+    return ops32 if ok else None
+
+
+def iir_blocked_rows(x: torch.Tensor, z: torch.Tensor, ops, L: int):
+    """The blocked form over rows: x [R, T] (real) or [R, T, 2] (complex,
+    interleaved), z [O, R] or [O, R, 2], ``ops`` the float32 operators of
+    :func:`iir_blocked_operators32` as tensors on x's device, L dividing
+    T -> (y like x, z_final like z). Complex rows run as planes ordered
+    (r0 re, r0 im, r1 re, ...), row-major over the trailing axis in both x
+    and z."""
+    H, Wz, M, G, powers = ops
+    if x.dim() == 2:
+        return iir_blocked_step(x, z, H, Wz, M, G, L, powers)
+    R, t = x.shape[:2]
+    order = z.shape[0]
+    yp, zf = iir_blocked_step(x.permute(0, 2, 1).reshape(R * 2, t),
+                              z.reshape(order, R * 2), H, Wz, M, G, L,
+                              powers)
+    return (yp.reshape(R, 2, t).permute(0, 2, 1).contiguous(),
+            zf.reshape(order, R, 2))
+
+
+def iir_df_rows(x: torch.Tensor, z: torch.Tensor, bp: torch.Tensor,
+                ap: torch.Tensor):
+    """The DF-II-T recursion sample by sample over rows, x [R, T, ...]
+    and z [O, R, ...], with bp, ap [O + 1] normalised taps on x's device
+    -> (y like x, z_final like z). A Python loop of T steps: slow on a
+    card."""
+    order = z.shape[0]
+    bcol = bp[1:].reshape((order,) + (1,) * (x.dim() - 1))
+    acol = ap[1:].reshape((order,) + (1,) * (x.dim() - 1))
+    ys = []
+    for n in range(x.shape[1]):
+        xn = x[:, n]
+        yn = bp[0] * xn + z[0]
+        z = bcol * xn[None] - acol * yn[None] + torch.cat(
+            [z[1:], torch.zeros_like(z[:1])])
+        ys.append(yn)
+    return torch.stack(ys, dim=1), z
+
+
 # ---------------------------------------------------------------------- #
 # Moving average cascade / DC removal
 # ---------------------------------------------------------------------- #

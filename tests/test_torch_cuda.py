@@ -43,6 +43,8 @@ from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
     fir_fft_fused, fir_fft_fused_plain, make_fused_chain)
 from pothoscomms_tpu_torch.kernels.fm_demod_dc import (fm_demod_dc,
                                                        fm_demod_dc_plain)
+from pothoscomms_tpu_torch.kernels.iir_df2t import iir_df2t
+from pothoscomms_tpu_torch.kernels.iir_df2t import plan as i1_plan
 from pothoscomms_tpu_torch.kernels.layout_move import (MODES, layout_move,
                                                        layout_move_plain)
 from pothoscomms_tpu_torch.kernels.stream_scale import (stream_scale,
@@ -692,15 +694,17 @@ def _config3_blocks(taps):
 
 @pytest.mark.parametrize("T", [1 << 15, 768])
 def test_resampler_chain_on_card_matches_cpu(dev, T):
-    """compile_chain([FIR 3:2, IIR]) on the card (one K1 launch a step;
-    the IIR at L = 256 for T = 2^15, 128 for 768) against the CPU."""
+    """compile_chain([FIR 3:2, IIR]) on the card (one K1 launch and one
+    I1 call a step, of two launches where I1's plan cuts the rows into
+    segments: T = 2^15) against the CPU (the IIR's blocked form at
+    L = 256 for T = 2^15, 128 for 768)."""
     from pothoscomms_tpu_torch.parallel.compiler import compile_chain
 
     rng = np.random.default_rng(T)
     taps = (rng.normal(size=60) + 1j * rng.normal(size=60)) / 60
     step_c, carry_c = compile_chain(_config3_blocks(taps), 4, device=dev)
     step_h, carry_h = compile_chain(_config3_blocks(taps), 4, device="cpu")
-    before = cgemm.launches
+    before = (cgemm.launches, iir_df2t.launches)
     for _ in range(2):
         x = _normal(rng, 4, T, 2)
         y_c, carry_c = step_c(x.to(dev), carry_c)
@@ -710,7 +714,10 @@ def test_resampler_chain_on_card_matches_cpu(dev, T):
             np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
                                        atol=1e-5)
     torch.cuda.synchronize()
-    assert cgemm.launches == before + 2
+    assert cgemm.launches == before[0] + 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    segs = i1_plan(2, T * 3 // 2, 2, 4, sms).segs
+    assert iir_df2t.launches == before[1] + 2 * (2 if segs > 1 else 1)
 
 
 def test_config3_designer_topology_on_card(dev):

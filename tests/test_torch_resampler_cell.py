@@ -4,8 +4,10 @@
 registry's blocks, chained steps against the benchmark's plain float64
 reference (``benchmark/reference/resampler_fir99_3to2_ellip6.py``), the
 designs, the spans ``pc.op.rational_operand``, ``pc.op.iir_products`` and
-``pc.op.iir_scan``, and the counters ``rational_fir_mm.by_shape``,
-``iir_blocked_step.by_shape`` and ``IIRFilter.fallback_steps``.
+``pc.op.iir_scan`` (the IIR's blocked form, on the CPU; on a card the IIR
+is I1, ``pc.kernel.iir_df2t``), and the counters
+``rational_fir_mm.by_shape``, ``iir_blocked_step.by_shape``,
+``IIRFilter.fallback_steps`` and ``iir_df2t.launches``.
 
 Tolerance: outputs and the IIR's state within 1e-5 of max |reference|:
 float32 rounding through the order-6 recursion (the program reads
@@ -33,6 +35,8 @@ import pothoscomms_tpu_torch as pkg
 from pothoscomms_tpu_torch.blocks.filter import IIRFilter
 from pothoscomms_tpu_torch.design.iirdes import design_iir
 from pothoscomms_tpu_torch.kernels import cgemm as k1
+from pothoscomms_tpu_torch.kernels.iir_df2t import iir_df2t
+from pothoscomms_tpu_torch.kernels.iir_df2t import plan as i1_plan
 from pothoscomms_tpu_torch.ops import filter as fops
 from pothoscomms_tpu_torch.parallel import compiler
 
@@ -185,21 +189,27 @@ def test_fallback_counts_a_step_no_block_length_divides():
 
 @pytest.mark.cuda
 def test_card_chain_matches_the_reference_and_launches_k1_once_a_step():
-    """On the card at C = 8, T = 8192: one K1 launch a step, each step
-    within TOL of the reference, the carry exact, the spans inside their
-    blocks and no ``pc.`` row on the device timeline."""
+    """On the card at C = 8, T = 8192: one K1 launch and one I1 call a
+    step (two launches: its plan cuts the 8 rows of 12288 output samples
+    into segments), each step within TOL of the reference, the carry
+    exact, I1's
+    span inside the IIR's block (no blocked form's spans) and no ``pc.``
+    row on the device timeline."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     rng = np.random.default_rng(65)
     C, T = 8, 8192
     step, carry = _chain(C, T, "cuda")
-    before = k1.cgemm.launches
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_step = 2 if i1_plan(6, T * 3 // 2, 2, C, sms).segs > 1 else 1
+    before = (k1.cgemm.launches, iir_df2t.launches)
     prev = None
     for i in range(1, 4):
         x = _x(rng, C, T).cuda()
         y, carry = step(x, carry)
         torch.cuda.synchronize()
-        assert k1.cgemm.launches == before + i
+        assert k1.cgemm.launches == before[0] + i
+        assert iir_df2t.launches == before[1] + per_step * i
         assert REF.check_step(CFG, W, prev, x, y)["out_err"] < TOL
         got = REF.check_carry(CFG, W, x, carry)
         assert got["carry_err"] == 0.0 and got["state_err"] < TOL
@@ -212,7 +222,9 @@ def test_card_chain_matches_the_reference_and_launches_k1_once_a_step():
     spans = host_spans(prof)
     iir = [s for s in spans if s[0] == "pc.chain.IIRFilter"]
     assert len(iir) == 2
-    assert all(len(inside(spans, s, "pc.op.iir_scan")) == 1 for s in iir)
+    assert all(len(inside(spans, s, "pc.kernel.iir_df2t")) == 1
+               for s in iir)
+    assert not [s for s in spans if s[0].startswith("pc.op.iir")]
     device = [e.name for e in prof.events()
               if e.device_type == DeviceType.CUDA]
     assert any("cgemm" in n for n in device)
