@@ -33,8 +33,10 @@ So far it covers:
   fused cores;
 - the channel-batched framed digital link (:mod:`.parallel.link`), whose
   frame-sync search is one launch of the S1 kernel
-  (:mod:`.kernels.sync_search`) over every channel; its bit-serial LFSR
-  and checksums run on the C++ host kernels of :mod:`.native`.
+  (:mod:`.kernels.sync_search`) over every channel, and its receive side
+  as a step on window batches already on the card
+  (:func:`.parallel.link.make_link_receiver`); its bit-serial LFSR and
+  checksums run on the C++ host kernels of :mod:`.native`.
 """
 
 from pothoscomms_tpu_torch.core.block import Block

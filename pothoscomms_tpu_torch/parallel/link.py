@@ -12,9 +12,20 @@ launch of S1 (``kernels/sync_search.py``) over all channels of the batch.
 The small per-channel acceptance automaton and Hamming header decode stay
 on the host (blocks/framing.py, the code the FrameSync block runs); then
 SymbolSlicer and Descrambler blocks recover the payload bits.
+:func:`make_link_receiver` builds that receive side once, for a receiver
+that calls it step after step on window batches already on the device;
+:func:`run_link` and :func:`run_sharded_link` go through it.
 :func:`run_sharded_link` splits the channels over the ranks of a
 ``parallel/mesh.Mesh``, as the JAX package shards its search over a
 device mesh's "ch" axis.
+
+The receive path's spans (``parallel/profiling.annotate``):
+``pc.link.receive`` around a call, and inside it ``pc.link.search`` (S1
+and the copies to the host), ``pc.link.decode`` (the automaton and the
+header), ``pc.link.slice`` and ``pc.link.descramble``. Its counters are
+the module's globals below, on the host clock and never gated on the
+profiler: ``search_s``, ``decode_s``, ``d2h_bytes``, ``frames``,
+``frames_found``, ``header_rejects`` and ``align_shift`` (by shift).
 
 Bit-exactness note: with rectangular pulses the reference's optimal
 bit-sampling search can settle one symbol late (FrameSync.cpp:709-721),
@@ -25,7 +36,9 @@ the transmitted bits.
 
 from __future__ import annotations
 
+import collections
 import time
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -47,8 +60,18 @@ from pothoscomms_tpu_torch.core.registry import BlockRegistry
 from pothoscomms_tpu_torch.core.topology import Topology
 from pothoscomms_tpu_torch.ops.framing import bucket_len, sync_search_planar
 from pothoscomms_tpu_torch.parallel import cplx
+from pothoscomms_tpu_torch.parallel.profiling import annotate
 
 PILOT_BITS = 8  # known-zero prefix/suffix resolving bit-clock alignment
+
+# the receive path's counters (host clock, whatever the profiler does)
+search_s = 0.0    # seconds in S1 and the copies of its arrays and window
+decode_s = 0.0    # seconds from those copies to the frames
+d2h_bytes = 0     # bytes the receiver copied from the device to the host
+frames = 0        # frames looked for: one a channel a call
+frames_found = 0  # of them, those whose payload was recovered
+header_rejects = 0  # accepted peaks whose header the decode refused
+align_shift = collections.Counter()  # recovered payloads by pilot shift
 
 
 def _run_topology(blocks, feed, sink, device):
@@ -147,15 +170,20 @@ def make_channel_search(preamble, symbol_width: int, data_width: int,
     return search, lp, n_pad
 
 
-def rx_decode(wave: np.ndarray, arrays, n_bits: int, *, poly: int = 0x19,
-              seed: int = 1, header_id: int = 0x55, symbol_width: int = 20,
-              data_width: int = 4, preamble=(1.0,),
-              device=None) -> Optional[np.ndarray]:
+def decode_frame(wave: np.ndarray, arrays, n_bits: int, *,
+                 poly: int = 0x19, seed: int = 1, header_id: int = 0x55,
+                 symbol_width: int = 20, data_width: int = 4,
+                 preamble=(1.0,), device=None):
     """One channel's RX given precomputed search arrays: acceptance
     automaton + header decode (shared FrameSync code), payload symbol
     recovery with phase-ramp compensation, then SymbolSlicer ->
     Descrambler blocks (on topologies on ``device``; they stream on the
-    host). Returns the recovered payload bits or None."""
+    host).
+
+    Returns (frame_offset, estimates, bits): the offset of the frame the
+    automaton accepted and the estimates it accepted there (``scale``,
+    ``dfc``, ``pho``), both None when no header decoded; the recovered
+    payload bits, or None."""
     pre = np.asarray(preamble, np.complex128)
     w = symbol_width * data_width
     sw = w * len(pre)
@@ -166,25 +194,26 @@ def rx_decode(wave: np.ndarray, arrays, n_bits: int, *, poly: int = 0x19,
     est = {}  # estimates captured from the automaton state at detection
 
     def try_decode(frame_offset, st):
+        global header_rejects
         # frame_offset >= 0 guaranteed by run_sync_automaton's guard
         first_bit, fields = process_header_bits(
             wave[frame_offset:], st["delta_fc_max"], st["scale_at_max"],
             st["phase_off_max"], sw, symbol_width, data_width, fw, pre[-1])
-        if fields is None or fields["error"]:
-            return None
-        if fields["chksum"] != header_checksum(fields["id"],
-                                               fields["length"]):
-            return None
-        if fields["id"] != header_id or fields["length"] == 0:
+        if (fields is None or fields["error"]
+                or fields["chksum"] != header_checksum(fields["id"],
+                                                       fields["length"])
+                or fields["id"] != header_id or fields["length"] == 0):
+            header_rejects += 1
             return None
         est.update(scale=st["scale_at_max"], dfc=st["delta_fc_max"],
                    pho=st["phase_off_max"])
         return first_bit, fields["length"]
 
-    hit = run_sync_automaton(new_sync_state(), arrays, mag_thresh,
-                             dur_thresh, try_decode)
+    with annotate("pc.link.decode"):
+        hit = run_sync_automaton(new_sync_state(), arrays, mag_thresh,
+                                 dur_thresh, try_decode)
     if hit is None:
-        return None
+        return None, None, None
     _, frame_offset, (first_bit, length) = hit
     # payload symbol recovery (TIMING-style: 1 sample per symbol at the
     # decimated bit clock, scale + phase-ramp compensated)
@@ -192,20 +221,35 @@ def rx_decode(wave: np.ndarray, arrays, n_bits: int, *, poly: int = 0x19,
     rel = rel0 + np.arange(length) * data_width
     idx = frame_offset + rel
     if idx[-1] >= len(wave):
-        return None
+        return frame_offset, est, None
     # phase/scale correction from the automaton's accepted estimates
     # (same math as FrameSync TIMING output: y = x*scale*e^{j(ph0+dfc rel)})
     syms = wave[idx] * est["scale"] * np.exp(
         1j * (est["pho"] + est["dfc"] * rel))
 
-    slicer = BlockRegistry.make("/comms/symbol_slicer", "complex_float64")
-    slicer.set_map([-1.0, 1.0])
-    feed = FeederSource("complex_float64")
-    feed.feed_buffer(syms.astype(np.complex128))
-    rx_bits = _run_topology([slicer], feed, CollectorSink("uint8"),
-                            device).get_buffer()
-    return align_payload(rx_bits, n_bits, poly=poly, seed=seed,
-                         device=device)
+    with annotate("pc.link.slice"):
+        slicer = BlockRegistry.make("/comms/symbol_slicer", "complex_float64")
+        slicer.set_map([-1.0, 1.0])
+        feed = FeederSource("complex_float64")
+        feed.feed_buffer(syms.astype(np.complex128))
+        rx_bits = _run_topology([slicer], feed, CollectorSink("uint8"),
+                                device).get_buffer()
+    with annotate("pc.link.descramble"):
+        bits = align_payload(rx_bits, n_bits, poly=poly, seed=seed,
+                             device=device)
+    return frame_offset, est, bits
+
+
+def rx_decode(wave: np.ndarray, arrays, n_bits: int, *, poly: int = 0x19,
+              seed: int = 1, header_id: int = 0x55, symbol_width: int = 20,
+              data_width: int = 4, preamble=(1.0,),
+              device=None) -> Optional[np.ndarray]:
+    """One channel's recovered payload bits (:func:`decode_frame`), or
+    None."""
+    return decode_frame(wave, arrays, n_bits, poly=poly, seed=seed,
+                        header_id=header_id, symbol_width=symbol_width,
+                        data_width=data_width, preamble=preamble,
+                        device=device)[2]
 
 
 def align_payload(rx_bits: np.ndarray, n_bits: int, *, poly: int = 0x19,
@@ -213,7 +257,8 @@ def align_payload(rx_bits: np.ndarray, n_bits: int, *, poly: int = 0x19,
     """Descramble sliced bits at the candidate alignments and return the
     payload where the zero pilot comes out all zeros (None if none):
     ``shift`` dummies ahead of the bits align the keystream with the TX
-    payload position of each received bit."""
+    payload position of each received bit. ``align_shift`` counts the
+    payloads recovered at each shift."""
     for shift in (0, 1, 2):
         desc = BlockRegistry.make("/comms/descrambler")
         desc.set_mode("additive")
@@ -228,8 +273,111 @@ def align_payload(rx_bits: np.ndarray, n_bits: int, *, poly: int = 0x19,
         if pilot.size and not pilot.any():
             rec = out[PILOT_BITS - shift: PILOT_BITS - shift + n_bits]
             if len(rec) == n_bits:
+                align_shift[shift] += 1
                 return rec
     return None
+
+
+@dataclass
+class LinkFrames:
+    """What FrameSync emits for each of a batch's C channels.
+
+    ``found`` [C] bool: the payload was recovered; ``bits`` [C, n_bits]
+    uint8, the payload bits (0 where not found); ``offset`` [C] int64,
+    the accepted frame's offset in the window, as the automaton gives it
+    (-1 where no header decoded); ``scale``, ``dfc``, ``phase`` [C]
+    float64, the estimates the automaton accepted with it (NaN where no
+    header decoded). ``arrays``: the search arrays (scale, delta_fc,
+    phase_off, corr_peak as int64; [C, n_pad] numpy) where the caller
+    asked to keep them, else None."""
+
+    found: np.ndarray
+    bits: np.ndarray
+    offset: np.ndarray
+    scale: np.ndarray
+    dfc: np.ndarray
+    phase: np.ndarray
+    arrays: Optional[tuple] = None
+
+
+def make_link_receiver(channels: int, window: int, n_bits: int, *,
+                       preamble=(1.0,), symbol_width: int = 20,
+                       data_width: int = 4, poly: int = 0x19, seed: int = 1,
+                       header_id: int = 0x55, input_threshold: float = 0.01,
+                       device=None):
+    """The link's receive side for ``channels`` channels of ``window``
+    samples, built once on ``device`` (the card unless the caller names
+    one): the S1 search of :func:`make_channel_search`, its padded length
+    ``lp`` and offsets ``n_pad``, and the decode's settings.
+
+    Returns ``receive(x, lengths, keep_arrays=False) -> LinkFrames``:
+    x [C, L, 2] planar float32 on the device, L <= lp (zero-padded to lp
+    on the device), channel c's samples valid up to ``lengths[c]``. One S1
+    launch for the batch, the arrays and the window copied to the host,
+    then each channel's :func:`decode_frame`. ``receive.lp`` and
+    ``receive.n_pad`` give the search's shape."""
+    dev = placement.resolve(device)
+    search, lp, n_pad = make_channel_search(preamble, symbol_width,
+                                            data_width, input_threshold,
+                                            window, device=dev)
+    settings = dict(poly=poly, seed=seed, header_id=header_id,
+                    symbol_width=symbol_width, data_width=data_width,
+                    preamble=preamble, device=dev)
+    head = lp - n_pad  # samples a frame's head spans past its offset
+
+    def receive(x: torch.Tensor, lengths, keep_arrays: bool = False):
+        global search_s, decode_s, d2h_bytes, frames, frames_found
+        lengths = np.asarray(lengths, np.int64)
+        if x.dim() != 3 or x.shape[0] != channels or x.shape[2] != 2 \
+                or x.shape[1] > lp or lengths.shape != (channels,) \
+                or lengths.max() > x.shape[1]:
+            raise ValueError(f"receive: x must be [{channels}, <= {lp}, 2] "
+                             f"with lengths [{channels}] inside it, got "
+                             f"{tuple(x.shape)} and {lengths.shape}")
+        with annotate("pc.link.receive"):
+            t0 = time.perf_counter()
+            with annotate("pc.link.search"):
+                if x.shape[1] < lp:
+                    x = torch.nn.functional.pad(x, (0, 0, 0,
+                                                    lp - x.shape[1]))
+                arrays = [a.cpu().numpy() for a in search(x)]
+                xh = x.cpu().numpy()
+            t1 = time.perf_counter()
+            if x.device.type != "cpu":
+                d2h_bytes += xh.nbytes + sum(a.nbytes for a in arrays)
+            arrays[3] = arrays[3].astype(np.int64)
+            scale, dfc, pho, peak = arrays
+            waves = xh.view(np.complex64)[..., 0]
+            out = LinkFrames(
+                found=np.zeros(channels, bool),
+                bits=np.zeros((channels, n_bits), np.uint8),
+                offset=np.full(channels, -1, np.int64),
+                scale=np.full(channels, np.nan),
+                dfc=np.full(channels, np.nan),
+                phase=np.full(channels, np.nan),
+                arrays=tuple(arrays) if keep_arrays else None)
+            for c in range(channels):
+                n_off = lengths[c] - head  # valid offsets for channel c
+                off, est, bits = decode_frame(
+                    waves[c, :lengths[c]],
+                    (scale[c][:n_off], dfc[c][:n_off], pho[c][:n_off],
+                     peak[c][:n_off]), n_bits, **settings)
+                if off is not None:
+                    out.offset[c] = off
+                    out.scale[c], out.dfc[c], out.phase[c] = \
+                        est["scale"], est["dfc"], est["pho"]
+                if bits is not None:
+                    out.found[c] = True
+                    out.bits[c] = bits
+            t2 = time.perf_counter()
+        search_s += t1 - t0
+        decode_s += t2 - t1
+        frames += channels
+        frames_found += int(out.found.sum())
+        return out
+
+    receive.lp, receive.n_pad = lp, n_pad
+    return receive
 
 
 def channel_wave(c: int, bits: np.ndarray, seed: int, noise: float,
@@ -268,14 +416,13 @@ def channel_waves(n_channels: int, n_bits: int, seed: int, noise: float,
                      for c in range(n_channels)]
 
 
-def _receive(waves, tx_bits, search, lp: int, n_pad: int, n_bits: int,
-             dev: torch.device):
+def _receive(waves, tx_bits, receive, dev: torch.device):
     """The RX side of a link: pad the waves into one [C, lp, 2] batch on
-    ``dev``, search it (one S1 launch), decode each channel on the host.
+    ``dev`` and hand it to ``receive`` (:func:`make_link_receiver`).
     Returns (per-channel exactness, the batch, the search arrays as numpy,
     the seconds of each stage)."""
     t0 = time.perf_counter()
-    x = np.zeros((len(waves), lp, 2), np.float32)
+    x = np.zeros((len(waves), receive.lp, 2), np.float32)
     for c, wv in enumerate(waves):
         x[c, : len(wv), 0] = wv.real
         x[c, : len(wv), 1] = wv.imag
@@ -283,20 +430,13 @@ def _receive(waves, tx_bits, search, lp: int, n_pad: int, n_bits: int,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
-    arrays = [a.cpu().numpy() for a in search(xd)]
-    t2 = time.perf_counter()
-    scale, dfc, pho, peak = arrays
-    peak = peak.astype(np.int64)
-    ok = []
-    for c, wv in enumerate(waves):
-        n_off = len(wv) - (lp - n_pad)  # valid offsets for channel c
-        rec = rx_decode(wv, (scale[c][:n_off], dfc[c][:n_off],
-                             pho[c][:n_off], peak[c][:n_off]),
-                        n_bits, symbol_width=20, data_width=4, device=dev)
-        ok.append(rec is not None and np.array_equal(rec, tx_bits[c]))
-    t3 = time.perf_counter()
-    return ok, xd, (scale, dfc, pho, peak), {
-        "upload": t1 - t0, "search": t2 - t1, "rx_decode": t3 - t2}
+    s0, d0 = search_s, decode_s
+    got = receive(xd, [len(wv) for wv in waves], keep_arrays=True)
+    ok = [bool(got.found[c]) and np.array_equal(got.bits[c], tx_bits[c])
+          for c in range(len(waves))]
+    return ok, xd, got.arrays, {
+        "upload": t1 - t0, "search": search_s - s0,
+        "rx_decode": decode_s - d0}
 
 
 def run_link(n_channels: int, n_bits: int = 64, seed: int = 7,
@@ -309,17 +449,15 @@ def run_link(n_channels: int, n_bits: int = 64, seed: int = 7,
     t0 = time.perf_counter()
     tx_bits, waves = channel_waves(n_channels, n_bits, seed, noise, dev)
     t1 = time.perf_counter()
-    length = max(len(w) for w in waves)
-    search, lp, n_pad = make_channel_search([1.0], 20, 4, 0.01, length,
-                                            device=dev)
-    ok, xd, arrays, seconds = _receive(waves, tx_bits, search, lp, n_pad,
-                                       n_bits, dev)
+    receive = make_link_receiver(n_channels, max(len(w) for w in waves),
+                                 n_bits, device=dev)
+    ok, xd, arrays, seconds = _receive(waves, tx_bits, receive, dev)
     return {
         "channels": n_channels,
         "bit_exact": ok,
         "all_exact": all(ok),
-        "lp": lp,
-        "n_pad": n_pad,
+        "lp": receive.lp,
+        "n_pad": receive.n_pad,
         "x": xd,
         "arrays": arrays,
         "seconds": {"tx": t1 - t0, **seconds},
@@ -364,17 +502,16 @@ def run_sharded_link(mesh, n_channels: int, n_bits: int = 64, seed: int = 7,
              for c, bits in enumerate(tx_bits)]
     t1 = time.perf_counter()
     length = mesh.all_reduce_max(max(len(w) for w in waves), "ch")
-    search, lp, n_pad = make_sharded_search(mesh, [1.0], 20, 4, 0.01, length)
-    ok, xd, arrays, seconds = _receive(waves, tx_bits, search, lp, n_pad,
-                                       n_bits, dev)
+    receive = make_link_receiver(per, length, n_bits, device=dev)
+    ok, xd, arrays, seconds = _receive(waves, tx_bits, receive, dev)
     ok = [v for part in mesh.all_gather_object(ok, "ch") for v in part]
     return {
         "channels": n_channels,
         "bit_exact": ok,
         "all_exact": all(ok),
         "devices": mesh.size,
-        "lp": lp,
-        "n_pad": n_pad,
+        "lp": receive.lp,
+        "n_pad": receive.n_pad,
         "x": xd,
         "arrays": arrays,
         "seconds": {"tx": t1 - t0, **seconds},

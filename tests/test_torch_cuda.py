@@ -969,6 +969,63 @@ def test_link_on_card_16_channels(dev):
     assert res["all_exact"], res["bit_exact"]
 
 
+def test_link_receiver_on_card_against_reference(dev):
+    """The receive entry at the benchmark's size, [256, 32768], on a window
+    batch the benchmark's plain reference transmits: one S1 launch, every
+    channel's payload bit-exact, and 8 channels within the configuration's
+    limits of the float64 receiver; traced, the pc.link.* spans are host
+    ranges with no device row."""
+    import importlib.util
+    import json
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pothoscomms_tpu_torch.kernels.sync_search import sync_search
+    from pothoscomms_tpu_torch.parallel.link import make_link_receiver
+
+    bench = Path(__file__).resolve().parents[1] / "benchmark"
+    name = "digital_link_bpsk_4000b"
+    spec = importlib.util.spec_from_file_location(
+        "_link_reference", bench / "reference" / f"{name}.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    cfg = json.loads((bench / "configs" / f"{name}.json").read_text())
+    traffic = json.loads((bench / "traffic" / "link_ch256_b4000_pool4.json")
+                         .read_text())
+    batch = ref.pool(cfg, {**traffic, "pool": 1}, 3000000019, dev)[0]
+    x = batch["x"]
+    assert x.shape == (256, 32768, 2) and x.is_cuda
+    receive = make_link_receiver(256, 32768, 4000, device=dev)
+    lengths = np.full(256, 32768)
+    before = sync_search.launches
+    got = receive(x, lengths)
+    assert sync_search.launches == before + 1
+    assert got.found.all()
+    np.testing.assert_array_equal(got.bits, batch["bits"])
+    chans = [0, 1, 37, 96, 128, 200, 254, 255]
+    sub = SimpleNamespace(**{k: getattr(got, k)[chans] for k in (
+        "found", "bits", "offset", "scale", "dfc", "phase")})
+    checks = ref.check_step(cfg, x[chans], sub, batch["bits"][chans])
+    for k, v in checks.items():
+        assert v <= cfg["limits"][k], (k, v)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        receive(x, lengths)
+        torch.cuda.synchronize()
+    spans = {"pc.link.receive", "pc.link.search", "pc.link.decode",
+             "pc.link.slice", "pc.link.descramble"}
+    host = {e.name for e in prof.events()
+            if e.device_type != DeviceType.CUDA}
+    device = {e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA}
+    assert spans <= host, spans - host
+    assert not any(n.startswith("pc.link.") for n in device)
+    assert any("sync_search_kernel" in n for n in device)
+
+
 # ------------------------------------------------------------------ #
 # the sources and the math catalog on the card
 # ------------------------------------------------------------------ #
