@@ -150,10 +150,16 @@ Phases, one or more lines each:
      (run_sharded_link's per-channel impairments, noise 0.001): every
      channel bit-exact; S1 (sync_search, the frame-sync search) launched
      once for the [256, 32768] batch and held against its plain version
-     and a float64 oracle of its formulas on 8 channels; the TX, search
-     and RX decode times, S1 alone by events and on the card beside its
-     plain version and its bound (the search's least work, 806 float32
-     operations an offset: kernels/sync_search.ops_per_offset);
+     and a float64 oracle of its formulas on 8 channels; D1 (frame_decode,
+     the frame decode) launched once, and a receiver's frames over the
+     same window equal to its plain version's, the host decode
+     (link.host_decode) on the same S1 arrays, field for field and
+     counter for counter; the TX, search (S1, D1 and the frames' copy
+     back) and unpacking times, S1 alone by events and on the card beside
+     its plain version and its bound (the search's least work, 806
+     float32 operations an offset: kernels/sync_search.ops_per_offset),
+     D1 alone by events and on the card beside the host decode and its
+     bound (the bytes it must move);
  22. path "frame_sync_block_api": 64 frames of 4000 bits (tx_waveform,
      apply_channel) through /comms/frame_sync (TIMING) -> collector on
      Topology(): 64 frame starts, every frame's payload exact after
@@ -244,7 +250,7 @@ Phases, one or more lines each:
      compile_chain_sharded on the FM chain at [256, 131072], F1 and E1
      (blocked) once a step, equal to compile_chain bit for bit; (f) path "sharded_link":
      run_sharded_link at 256 channels x 4000-bit frames (noise 0.001),
-     S1 once at [256, 32768], every channel exact, the arrays equal to
+     S1 once at [256, 32768] and D1 once, every channel exact, the arrays equal to
      [21]'s run_link bit for bit and within the float64 oracle's bounds;
      (g) path "dryrun_multichip": dryrun_multichip(1) on the card;
  28. the BASELINE bench suite (phase_28): benches_torch/bench_suite.py in
@@ -1119,8 +1125,9 @@ def phase_27(c, T=N27, CL=256):
               f"equal to [21]'s run_link bit for bit {same_f}; against the "
               f"float64 oracle on channels {chans}: {agree}; wall "
               f"{wall_f:.3f} s (TX {sec['tx']:.3f}, upload "
-              f"{sec['upload']:.3f}, search {sec['search'] * 1e3:.3f} ms, "
-              f"RX decode {sec['rx_decode']:.3f}); launches "
+              f"{sec['upload']:.3f}, search and D1 "
+              f"{sec['search'] * 1e3:.3f} ms, unpacking "
+              f"{sec['rx_decode'] * 1e3:.3f} ms); launches "
               f"{launches['sharded_link']}")
         check(res_f["all_exact"] and res_f["devices"] == 1 and same_f,
               "[27](f) the sharded link is not exact or differs from run_link")
@@ -1131,6 +1138,8 @@ def phase_27(c, T=N27, CL=256):
         check(launches["sharded_link"]["sync_search"] == 1
               and shapes_f == [(CL, res_f["lp"], 2)],
               "[27](f) did not launch S1 once for the rank's channels")
+        check(launches["sharded_link"]["frame_decode"] == 1,
+              "[27](f) did not launch D1 once for the rank's channels")
         summary["f"] = {"exact": sum(res_f["bit_exact"]), "wall_s": wall_f,
                         **sec}
         del res_f
@@ -1333,6 +1342,8 @@ def main() -> int:
     from pothoscomms_tpu_torch.kernels.iir_df2t import (iir_df2t,
                                                         iir_df2t_plain)
     from pothoscomms_tpu_torch.kernels.iir_df2t import plan as i1_plan
+    from pothoscomms_tpu_torch.kernels import frame_decode as d1
+    from pothoscomms_tpu_torch.kernels.frame_decode import frame_decode
     from pothoscomms_tpu_torch.kernels.sync_search import (
         card_plan, ops_per_offset, sync_search, sync_search_plain, work)
     from pothoscomms_tpu_torch.kernels.layout_move import (
@@ -1591,7 +1602,8 @@ def main() -> int:
                 "fir_fft_fused": fir_fft_fused, "stream_scale": stream_scale,
                 "layout_move": layout_move, "envelope": envelope_rows,
                 "sync_search": sync_search, "fm_demod_dc": fm_demod_dc,
-                "fir_decim": fir_decim, "iir_df2t": iir_df2t}
+                "fir_decim": fir_decim, "iir_df2t": iir_df2t,
+                "frame_decode": frame_decode}
 
     def zero_counts():
         for w in wrappers.values():
@@ -3085,6 +3097,8 @@ def main() -> int:
     from pothoscomms_tpu_torch.core.testing import (search_agreement,
                                                     sync_search_f64)
     from pothoscomms_tpu_torch.ops import framing as framing_ops
+    from pothoscomms_tpu_torch.native import NativeLfsr
+    from pothoscomms_tpu_torch.parallel import link as link_mod
     from pothoscomms_tpu_torch.parallel.link import (align_payload,
                                                      apply_channel, run_link,
                                                      tx_waveform)
@@ -3110,6 +3124,8 @@ def main() -> int:
     check(launches21["sync_search"] == 1
           and s1_shapes21 == [(CL, res21["lp"], 2)],
           "the link did not launch S1 once for the whole batch")
+    check(launches21["frame_decode"] == 1,
+          "the link did not launch D1 once for the whole batch")
     pre21 = torch.tensor([[1.0, 0.0]], device=dev)
     args21 = (0.01, 80, 80, 4, 1, n21)
     got21 = sync_search(x21, pre21, *args21)
@@ -3151,8 +3167,9 @@ def main() -> int:
                            pool21, calls=3)
     print(f"[21] on {card}: TX {sec21['tx']:.3f} s ({CL} topologies on the "
           f"host), upload {sec21['upload']:.3f} s, search "
-          f"{sec21['search'] * 1e3:.3f} ms (one S1 launch and the arrays' "
-          f"copy back), RX decode on the host {sec21['rx_decode']:.3f} s; "
+          f"{sec21['search'] * 1e3:.3f} ms (one S1 and one D1 launch, the "
+          f"frames' and the kept arrays' copy back), unpacking the frames "
+          f"{sec21['rx_decode'] * 1e3:.3f} ms; "
           f"S1 alone {s1_ms:.4f} ms ({f4(s1_device_ms)} on the card), bound "
           f"{s1_bound[0]:.4f} ms by {s1_bound[1]} "
           f"({ops_per_offset(*args21[1:5])} operations an offset; "
@@ -3166,7 +3183,94 @@ def main() -> int:
         "device_ms": s1_device_ms, "bound_ms": s1_bound[0],
         "bound_by": s1_bound[1]}}
     arrays21 = res21["arrays"]  # held against the sharded link in [27]
-    del got21, plain21, res21, x21
+
+    # D1 against its plain version, the host decode, on the same window
+    # (every sample valid) and a receiver's own S1 arrays: every field and
+    # the counters each moved (frames_found moves in receive alone)
+    lp21 = res21["lp"]
+    rx21 = link_mod.make_link_receiver(CL, lp21, NBL, device=dev)
+    check(rx21.lp == lp21 and rx21.n_pad == n21,
+          "[21] a receiver over the window has another shape")
+    lengths21 = np.full(CL, lp21, np.int64)
+
+    def link_counts():
+        return (link_mod.header_rejects, dict(link_mod.align_shift),
+                link_mod.frames_found, link_mod.host_decode_channels)
+
+    def moved(after, before):
+        shifts = {k: v - before[1].get(k, 0) for k, v in after[1].items()}
+        return (after[0] - before[0], {k: v for k, v in shifts.items() if v},
+                after[2] - before[2], after[3] - before[3])
+
+    zero_counts()
+    cn0 = link_counts()
+    frames21 = rx21(x21, lengths21, keep_arrays=True)
+    d1_launches = read_counts()["frame_decode"]
+    cn1 = link_counts()
+    t0 = time.perf_counter()
+    host21 = link_mod.host_decode(x21.cpu().numpy(), frames21.arrays,
+                                  lengths21, NBL, device="cpu")
+    d1_plain_ms = (time.perf_counter() - t0) * 1e3
+    card_moved, host_moved = moved(cn1, cn0), moved(link_counts(), cn1)
+    fields21 = ("found", "bits", "offset", "scale", "dfc", "phase")
+    differ21 = [k for k in fields21 if not np.array_equal(
+        getattr(frames21, k), getattr(host21, k), equal_nan=k in
+        ("scale", "dfc", "phase"))]
+    d1_abs = max(float(np.nanmax(np.abs(getattr(frames21, k)
+                                        - getattr(host21, k)), initial=0.0))
+                 for k in ("scale", "dfc", "phase"))
+    print(f"[21] D1 at [{CL}, {n21}] over [{CL}, {lp21}, 2], {NBL}-bit "
+          f"frames: launches {d1_launches}; against the host decode on the "
+          f"same S1 arrays, fields that differ {differ21}, max|d estimate| "
+          f"{d1_abs:.3e}; found {int(frames21.found.sum())} of {CL}; "
+          f"counters moved by D1 (header rejects, payloads by shift, frames "
+          f"found, channels on the host) {card_moved}, by the host decode "
+          f"{host_moved}")
+    check(d1_launches == 1 and not differ21 and frames21.found.all()
+          and card_moved[:2] == host_moved[:2]
+          and card_moved[2:] == (CL, 0) and host_moved[3] == CL,
+          "[21] D1 disagrees with the host decode")
+    # D1 alone, on S1's arrays from above; its bound, the bytes it must
+    # move: corr_peak up to each acceptance, the estimates there, the
+    # first-bit search's and the header's samples, the payload samples
+    # and keystream bits, the lengths and the records
+    geo21 = link_mod.frame_geometry((1.0,), 20, 4)
+    ks21 = torch.from_numpy(
+        NativeLfsr(0x19, 1).keystream(d1.KEYSTREAM_BITS)).to(dev)
+    lens21 = torch.from_numpy(lengths21).to(dev)
+    rec21 = d1.record_bytes(NBL)
+
+    def d1_call(arrays):
+        out = torch.empty((CL, rec21), dtype=torch.uint8, device=dev)
+        return frame_decode(arrays, x21, lens21, ks21, out, n_bits=NBL,
+                            dw=4, header_id=0x55, last_symbol=1.0, **geo21)
+
+    alone21 = d1.read_records(d1_call(got21).cpu().numpy(), NBL)
+    check(all(np.array_equal(alone21[k], getattr(frames21, k),
+                             equal_nan=k in ("scale", "dfc", "phase"))
+              for k in fields21),
+          "[21] D1 alone disagrees with the receiver's D1")
+    headed = host21.offset >= 0
+    acc21 = np.where(headed, np.minimum(host21.offset + geo21["dur"] + 1,
+                                        n21), n21)
+    d1_bytes = (4 * int(acc21.sum()) + 12 * int(headed.sum())
+                + 8 * (geo21["fw"] - geo21["sw"] + geo21["w"] // 2)
+                * int(headed.sum())
+                + 9 * (NBL + 16) * int(host21.found.sum())
+                + 8 * CL + CL * rec21)
+    d1_bound = bound(d1_bytes, 0)
+    pool_d1 = [(got21,)]
+    d1_ms = event_ms(d1_call, pool_d1, calls=20)
+    d1_device_ms = device_ms(d1_call, pool_d1, calls=20, per_call=1,
+                             floor_ms=d1_bound[0])
+    print(f"[21] D1 on {card}: {d1_ms:.4f} ms by events "
+          f"({f4(d1_device_ms)} on the card), bound {d1_bound[0]:.4f} ms "
+          f"by {d1_bound[1]} ({d1_bytes / 1e6:.2f} MB; "
+          f"{d1_bound[0] / d1_ms:.1%} of it by events, "
+          f"{share(d1_bound[0], d1_device_ms)} on the card); its plain "
+          f"version, the host decode, {d1_plain_ms:.1f} ms on the host "
+          f"({d1_plain_ms / d1_ms:.0f}x D1)")
+    del got21, plain21, res21, x21, rx21, frames21, host21, lens21, ks21
 
     # -- 22. path "frame_sync_block_api": FrameSync and the loopback ------
     NF22 = 64
@@ -3844,7 +3948,8 @@ def main() -> int:
         "envelope": e1_bound,
         "sync_search": s1_bound,
         "fm_demod_dc": f1_bound,
-        "iir_df2t": i1_bound}
+        "iir_df2t": i1_bound,
+        "frame_decode": d1_bound}
     # name: (source, TPU kernel, max |d|, ms, plain ms, one library call's
     # ms or None where no single PyTorch call computes the function)
     measured = {
@@ -3873,7 +3978,13 @@ def main() -> int:
                         None),
         "iir_df2t": ("iir_df2t.cu", "pothoscomms_tpu/ops/filter.py "
                      "iir_blocked_step (XLA ops, not a Pallas kernel)",
-                     i1_abs, i1_ms, i1_plain_ms, None)}
+                     i1_abs, i1_ms, i1_plain_ms, None),
+        "frame_decode": ("frame_decode.cu", "pothoscomms_tpu/parallel/link."
+                         "py rx_decode (host code: FrameSync's automaton "
+                         "and header, the slicer and descrambler blocks; "
+                         "not a Pallas kernel); its plain_ms is the host "
+                         "decode's, on the host", d1_abs, d1_ms,
+                         d1_plain_ms, None)}
     kernels = []
     for name, (src, where, err, ms, plain_ms, lib_ms) in measured.items():
         paths = {p: c[name] for p, c in by_path.items()}
@@ -3916,6 +4027,8 @@ def main() -> int:
     kernels[6]["oracle_agreement"] = s1_oracle
     # S1 at the link's and FrameSync's launch shapes
     kernels[6]["by_shape"] = s1_by_shape
+    next(k for k in kernels if k["name"] == "frame_decode")["device_ms"] = \
+        d1_device_ms
     kernels[1]["device_ms"] = k2_device_ms
     kernels[1]["library_device_ms"] = k2_cufft_device_ms
     kernels[1]["by_n_at_32Mi_samples"] = k2_by_n

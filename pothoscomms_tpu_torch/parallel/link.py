@@ -9,9 +9,6 @@ TX runs per channel through the port's blocks on the streaming runtime
 (bit-level fidelity); the receive-side search — the expensive part, the
 reference's hottest loop (digital/FrameSync.cpp:470-497) — runs as ONE
 launch of S1 (``kernels/sync_search.py``) over all channels of the batch.
-The small per-channel acceptance automaton and Hamming header decode stay
-on the host (blocks/framing.py, the code the FrameSync block runs); then
-SymbolSlicer and Descrambler blocks recover the payload bits.
 :func:`make_link_receiver` builds that receive side once, for a receiver
 that calls it step after step on window batches already on the device;
 :func:`run_link` and :func:`run_sharded_link` go through it.
@@ -19,13 +16,29 @@ that calls it step after step on window batches already on the device;
 ``parallel/mesh.Mesh``, as the JAX package shards its search over a
 device mesh's "ch" axis.
 
+The decode after the search takes one of two paths, by the receiver's
+device:
+
+* on a card, ONE launch of D1 (``kernels/frame_decode.py``) decodes every
+  channel where S1's arrays and the window lie: the acceptance automaton,
+  the header, the slicer and the descrambler (an XOR with the
+  descrambler's keystream, made once); one copy brings the frames back;
+* on the CPU, a channel at a time :func:`decode_frame`: the automaton and
+  the Hamming header decode on the host (blocks/framing.py, the code the
+  FrameSync block runs), then SymbolSlicer and Descrambler blocks. It is
+  D1's oracle in the tests.
+
 The receive path's spans (``parallel/profiling.annotate``):
-``pc.link.receive`` around a call, and inside it ``pc.link.search`` (S1
-and the copies to the host), ``pc.link.decode`` (the automaton and the
-header), ``pc.link.slice`` and ``pc.link.descramble``. Its counters are
-the module's globals below, on the host clock and never gated on the
+``pc.link.receive`` around a call, and inside it ``pc.link.search`` (S1;
+on a card also D1, span ``pc.kernel.frame_decode``, and the copy of the
+frames; on the CPU the arrays and the window), then on the CPU a channel
+at a time ``pc.link.decode`` (the automaton and the header),
+``pc.link.slice`` and ``pc.link.descramble``. Its counters are the
+module's globals below, on the host clock and never gated on the
 profiler: ``search_s``, ``decode_s``, ``d2h_bytes``, ``frames``,
-``frames_found``, ``header_rejects`` and ``align_shift`` (by shift).
+``frames_found``, ``header_rejects``, ``align_shift`` (by shift) and
+``host_decode_channels``; D1 counts its launches in
+``frame_decode.launches``, one a call on a card.
 
 Bit-exactness note: with rectangular pulses the reference's optimal
 bit-sampling search can settle one symbol late (FrameSync.cpp:709-721),
@@ -58,6 +71,8 @@ from pothoscomms_tpu_torch.core.fixtures import CollectorSink, FeederSource
 from pothoscomms_tpu_torch.core.labels import Label
 from pothoscomms_tpu_torch.core.registry import BlockRegistry
 from pothoscomms_tpu_torch.core.topology import Topology
+from pothoscomms_tpu_torch.kernels import frame_decode as d1
+from pothoscomms_tpu_torch.native import NativeLfsr
 from pothoscomms_tpu_torch.ops.framing import bucket_len, sync_search_planar
 from pothoscomms_tpu_torch.parallel import cplx
 from pothoscomms_tpu_torch.parallel.profiling import annotate
@@ -65,13 +80,16 @@ from pothoscomms_tpu_torch.parallel.profiling import annotate
 PILOT_BITS = 8  # known-zero prefix/suffix resolving bit-clock alignment
 
 # the receive path's counters (host clock, whatever the profiler does)
-search_s = 0.0    # seconds in S1 and the copies of its arrays and window
-decode_s = 0.0    # seconds from those copies to the frames
+search_s = 0.0    # seconds from the call until the decode's input is on
+                  # the host: S1 and the copies (on a card S1, D1 and the
+                  # copy of the frames)
+decode_s = 0.0    # seconds from then to the frames
 d2h_bytes = 0     # bytes the receiver copied from the device to the host
 frames = 0        # frames looked for: one a channel a call
 frames_found = 0  # of them, those whose payload was recovered
 header_rejects = 0  # accepted peaks whose header the decode refused
 align_shift = collections.Counter()  # recovered payloads by pilot shift
+host_decode_channels = 0  # channels decoded on the host (decode_frame)
 
 
 def _run_topology(blocks, feed, sink, device):
@@ -143,6 +161,18 @@ def apply_channel(wave: np.ndarray, *, gap_pre: int = 400,
     return sig.astype(np.complex64)
 
 
+def frame_geometry(preamble, symbol_width: int, data_width: int) -> dict:
+    """A frame's geometry in samples, as FrameSync works it out: ``w`` a
+    preamble symbol, ``sw`` the sync word (the preamble), ``fw`` the
+    frame's head (the sync word and the header's bits), and the
+    acceptance automaton's thresholds ``mag`` and ``dur``."""
+    w = symbol_width * data_width
+    sw = w * len(preamble)
+    return {"sw": sw, "w": w, "fw": sw + NUM_HEADER_BITS * data_width,
+            "mag": int(sw * CORR_MAG_PERCENT),
+            "dur": int(sw * CORR_DUR_PERCENT)}
+
+
 def make_channel_search(preamble, symbol_width: int, data_width: int,
                         input_threshold: float, length: int, device=None):
     """Build the channel-batched search on one device (the card unless the
@@ -153,19 +183,16 @@ def make_channel_search(preamble, symbol_width: int, data_width: int,
     lp = bucket_len of ``length`` (pad inputs with zeros)."""
     dev = placement.resolve(device)
     pre = np.asarray(preamble)
-    npre = len(pre)
-    w = symbol_width * data_width
-    sw = w * npre
-    fw = sw + NUM_HEADER_BITS * data_width
-    lp = bucket_len(length, minimum=max(2 * fw, 1024))
-    n_pad = lp - fw + 1
+    g = frame_geometry(pre, symbol_width, data_width)
+    lp = bucket_len(length, minimum=max(2 * g["fw"], 1024))
+    n_pad = lp - g["fw"] + 1
     pre_p = cplx.to_planar(np.asarray(pre, np.complex64)).to(dev)
     thr = float(input_threshold)
 
     def search(x):
         x = torch.as_tensor(x, dtype=torch.float32).to(dev)
-        return sync_search_planar(x, pre_p, thr, sw, w, data_width, npre,
-                                  n_pad)
+        return sync_search_planar(x, pre_p, thr, g["sw"], g["w"],
+                                  data_width, len(pre), n_pad)
 
     return search, lp, n_pad
 
@@ -185,20 +212,20 @@ def decode_frame(wave: np.ndarray, arrays, n_bits: int, *,
     ``dfc``, ``pho``), both None when no header decoded; the recovered
     payload bits, or None."""
     pre = np.asarray(preamble, np.complex128)
-    w = symbol_width * data_width
-    sw = w * len(pre)
-    fw = sw + NUM_HEADER_BITS * data_width
-    mag_thresh = int(sw * CORR_MAG_PERCENT)
-    dur_thresh = int(sw * CORR_DUR_PERCENT)
+    g = frame_geometry(pre, symbol_width, data_width)
 
     est = {}  # estimates captured from the automaton state at detection
 
     def try_decode(frame_offset, st):
         global header_rejects
         # frame_offset >= 0 guaranteed by run_sync_automaton's guard
-        first_bit, fields = process_header_bits(
-            wave[frame_offset:], st["delta_fc_max"], st["scale_at_max"],
-            st["phase_off_max"], sw, symbol_width, data_width, fw, pre[-1])
+        try:
+            first_bit, fields = process_header_bits(
+                wave[frame_offset:], st["delta_fc_max"], st["scale_at_max"],
+                st["phase_off_max"], g["sw"], symbol_width, data_width,
+                g["fw"], pre[-1])
+        except IndexError:  # the header's bits run past the valid samples
+            fields = None
         if (fields is None or fields["error"]
                 or fields["chksum"] != header_checksum(fields["id"],
                                                        fields["length"])
@@ -210,8 +237,8 @@ def decode_frame(wave: np.ndarray, arrays, n_bits: int, *,
         return first_bit, fields["length"]
 
     with annotate("pc.link.decode"):
-        hit = run_sync_automaton(new_sync_state(), arrays, mag_thresh,
-                                 dur_thresh, try_decode)
+        hit = run_sync_automaton(new_sync_state(), arrays, g["mag"],
+                                 g["dur"], try_decode)
     if hit is None:
         return None, None, None
     _, frame_offset, (first_bit, length) = hit
@@ -300,6 +327,42 @@ class LinkFrames:
     arrays: Optional[tuple] = None
 
 
+def host_decode(x: np.ndarray, arrays, lengths, n_bits: int,
+                **settings) -> LinkFrames:
+    """Each channel's :func:`decode_frame` on the host: the receiver's
+    decode on the CPU, and D1's oracle. x: the searched window, planar
+    float32 [C, lp, 2]; arrays: S1's four [C, n_pad] arrays (corr_peak as
+    int64) over it; channel c's samples valid up to ``lengths[c]``;
+    ``settings`` :func:`decode_frame`'s keywords. Counts the channels in
+    ``host_decode_channels``."""
+    global host_decode_channels
+    channels, lp = x.shape[:2]
+    head = lp - arrays[0].shape[1]  # samples a frame's head spans
+    scale, dfc, pho, peak = arrays
+    waves = x.view(np.complex64)[..., 0]
+    out = LinkFrames(
+        found=np.zeros(channels, bool),
+        bits=np.zeros((channels, n_bits), np.uint8),
+        offset=np.full(channels, -1, np.int64),
+        scale=np.full(channels, np.nan), dfc=np.full(channels, np.nan),
+        phase=np.full(channels, np.nan))
+    for c in range(channels):
+        n_off = max(lengths[c] - head, 0)  # valid offsets for channel c
+        off, est, bits = decode_frame(
+            waves[c, :lengths[c]],
+            (scale[c][:n_off], dfc[c][:n_off], pho[c][:n_off],
+             peak[c][:n_off]), n_bits, **settings)
+        if off is not None:
+            out.offset[c] = off
+            out.scale[c], out.dfc[c], out.phase[c] = \
+                est["scale"], est["dfc"], est["pho"]
+        if bits is not None:
+            out.found[c] = True
+            out.bits[c] = bits
+    host_decode_channels += channels
+    return out
+
+
 def make_link_receiver(channels: int, window: int, n_bits: int, *,
                        preamble=(1.0,), symbol_width: int = 20,
                        data_width: int = 4, poly: int = 0x19, seed: int = 1,
@@ -308,14 +371,17 @@ def make_link_receiver(channels: int, window: int, n_bits: int, *,
     """The link's receive side for ``channels`` channels of ``window``
     samples, built once on ``device`` (the card unless the caller names
     one): the S1 search of :func:`make_channel_search`, its padded length
-    ``lp`` and offsets ``n_pad``, and the decode's settings.
+    ``lp`` and offsets ``n_pad``, and the decode's settings; on a card
+    also D1's library, the descrambler's keystream on the card, D1's
+    output and a page-locked host buffer for it.
 
     Returns ``receive(x, lengths, keep_arrays=False) -> LinkFrames``:
     x [C, L, 2] planar float32 on the device, L <= lp (zero-padded to lp
     on the device), channel c's samples valid up to ``lengths[c]``. One S1
-    launch for the batch, the arrays and the window copied to the host,
-    then each channel's :func:`decode_frame`. ``receive.lp`` and
-    ``receive.n_pad`` give the search's shape."""
+    launch for the batch; on a card one D1 launch and one copy of the
+    frames to the host, on the CPU each channel's :func:`decode_frame`.
+    ``keep_arrays`` also copies S1's arrays to the host. ``receive.lp``
+    and ``receive.n_pad`` give the search's shape."""
     dev = placement.resolve(device)
     search, lp, n_pad = make_channel_search(preamble, symbol_width,
                                             data_width, input_threshold,
@@ -323,52 +389,83 @@ def make_link_receiver(channels: int, window: int, n_bits: int, *,
     settings = dict(poly=poly, seed=seed, header_id=header_id,
                     symbol_width=symbol_width, data_width=data_width,
                     preamble=preamble, device=dev)
-    head = lp - n_pad  # samples a frame's head spans past its offset
+    on_card = dev.type == "cuda"
+    if on_card:
+        d1.load()
+        geometry = dict(
+            frame_geometry(preamble, symbol_width, data_width),
+            n_bits=n_bits, dw=data_width, header_id=header_id,
+            last_symbol=complex(np.asarray(preamble, np.complex128)[-1]))
+        # additive descrambling is an XOR with the keystream, whatever the
+        # data: the /comms/descrambler block's LFSR, run on zeros
+        keystream = torch.from_numpy(
+            NativeLfsr(poly, seed).keystream(d1.KEYSTREAM_BITS)).to(dev)
+        records = torch.empty((channels, d1.record_bytes(n_bits)),
+                              dtype=torch.uint8, device=dev)
+        host_records = torch.empty(records.shape, dtype=torch.uint8,
+                                   pin_memory=True)
+
+    def card_decode(x, lengths, arrays):
+        """D1 over the batch, and the copy of its records to the host
+        started (the caller synchronises). ``lengths`` on the card."""
+        d1.frame_decode(arrays, x, lengths, keystream, records, **geometry)
+        host_records.copy_(records, non_blocking=True)
+
+    def card_frames(bits):
+        """The copied records as the caller's own arrays, the payload bits
+        in ``bits``."""
+        global header_rejects
+        got = d1.read_records(host_records.numpy(), n_bits, bits)
+        header_rejects += int(got["rejects"].sum())
+        align_shift.update(got["shift"][got["found"]].tolist())
+        return LinkFrames(found=got["found"], bits=got["bits"],
+                          offset=got["offset"], scale=got["scale"],
+                          dfc=got["dfc"], phase=got["phase"])
 
     def receive(x: torch.Tensor, lengths, keep_arrays: bool = False):
         global search_s, decode_s, d2h_bytes, frames, frames_found
         lengths = np.asarray(lengths, np.int64)
         if x.dim() != 3 or x.shape[0] != channels or x.shape[2] != 2 \
                 or x.shape[1] > lp or lengths.shape != (channels,) \
-                or lengths.max() > x.shape[1]:
+                or lengths.max() > x.shape[1] or lengths.min() < 0:
             raise ValueError(f"receive: x must be [{channels}, <= {lp}, 2] "
                              f"with lengths [{channels}] inside it, got "
                              f"{tuple(x.shape)} and {lengths.shape}")
+        if x.device.type != dev.type or dev.index not in (
+                None, x.device.index) or x.dtype != torch.float32:
+            raise ValueError(f"receive: x must be float32 on {dev}, got "
+                             f"{x.dtype} on {x.device}")
         with annotate("pc.link.receive"):
             t0 = time.perf_counter()
             with annotate("pc.link.search"):
                 if x.shape[1] < lp:
                     x = torch.nn.functional.pad(x, (0, 0, 0,
                                                     lp - x.shape[1]))
-                arrays = [a.cpu().numpy() for a in search(x)]
-                xh = x.cpu().numpy()
+                x = x.contiguous()
+                if on_card:  # uploaded ahead of S1, so no wait on it
+                    lengths_dev = torch.from_numpy(lengths).to(dev)
+                arrays = search(x)
+                if on_card:
+                    card_decode(x, lengths_dev, arrays)
+                    kept = [a.cpu().numpy() for a in arrays] \
+                        if keep_arrays else []
+                    # the bits go to fresh pages, which a caller that keeps
+                    # its frames has never touched: fault them in while
+                    # the card works
+                    bits = np.empty((channels, n_bits), np.uint8)
+                    bits.fill(0)
+                    torch.cuda.current_stream(dev).synchronize()
+                    copied = host_records.nbytes + sum(a.nbytes
+                                                       for a in kept)
+                else:
+                    kept, copied = [a.numpy() for a in arrays], 0
             t1 = time.perf_counter()
-            if x.device.type != "cpu":
-                d2h_bytes += xh.nbytes + sum(a.nbytes for a in arrays)
-            arrays[3] = arrays[3].astype(np.int64)
-            scale, dfc, pho, peak = arrays
-            waves = xh.view(np.complex64)[..., 0]
-            out = LinkFrames(
-                found=np.zeros(channels, bool),
-                bits=np.zeros((channels, n_bits), np.uint8),
-                offset=np.full(channels, -1, np.int64),
-                scale=np.full(channels, np.nan),
-                dfc=np.full(channels, np.nan),
-                phase=np.full(channels, np.nan),
-                arrays=tuple(arrays) if keep_arrays else None)
-            for c in range(channels):
-                n_off = lengths[c] - head  # valid offsets for channel c
-                off, est, bits = decode_frame(
-                    waves[c, :lengths[c]],
-                    (scale[c][:n_off], dfc[c][:n_off], pho[c][:n_off],
-                     peak[c][:n_off]), n_bits, **settings)
-                if off is not None:
-                    out.offset[c] = off
-                    out.scale[c], out.dfc[c], out.phase[c] = \
-                        est["scale"], est["dfc"], est["pho"]
-                if bits is not None:
-                    out.found[c] = True
-                    out.bits[c] = bits
+            d2h_bytes += copied
+            if kept:
+                kept[3] = kept[3].astype(np.int64)
+            out = card_frames(bits) if on_card else host_decode(
+                x.numpy(), kept, lengths, n_bits, **settings)
+            out.arrays = tuple(kept) if keep_arrays else None
             t2 = time.perf_counter()
         search_s += t1 - t0
         decode_s += t2 - t1

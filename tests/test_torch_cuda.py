@@ -971,10 +971,11 @@ def test_link_on_card_16_channels(dev):
 
 def test_link_receiver_on_card_against_reference(dev):
     """The receive entry at the benchmark's size, [256, 32768], on a window
-    batch the benchmark's plain reference transmits: one S1 launch, every
-    channel's payload bit-exact, and 8 channels within the configuration's
-    limits of the float64 receiver; traced, the pc.link.* spans are host
-    ranges with no device row."""
+    batch the benchmark's plain reference transmits: one S1 and one D1
+    launch, every channel's payload bit-exact, and 8 channels within the
+    configuration's limits of the float64 receiver; traced, the pc.link.*
+    spans and pc.kernel.frame_decode are host ranges with no device row,
+    and no channel is decoded on the host."""
     import importlib.util
     import json
     from pathlib import Path
@@ -983,7 +984,9 @@ def test_link_receiver_on_card_against_reference(dev):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from pothoscomms_tpu_torch.kernels.frame_decode import frame_decode
     from pothoscomms_tpu_torch.kernels.sync_search import sync_search
+    from pothoscomms_tpu_torch.parallel import link
     from pothoscomms_tpu_torch.parallel.link import make_link_receiver
 
     bench = Path(__file__).resolve().parents[1] / "benchmark"
@@ -1000,9 +1003,12 @@ def test_link_receiver_on_card_against_reference(dev):
     assert x.shape == (256, 32768, 2) and x.is_cuda
     receive = make_link_receiver(256, 32768, 4000, device=dev)
     lengths = np.full(256, 32768)
-    before = sync_search.launches
+    before = (sync_search.launches, frame_decode.launches,
+              link.host_decode_channels)
     got = receive(x, lengths)
-    assert sync_search.launches == before + 1
+    assert (sync_search.launches, frame_decode.launches,
+            link.host_decode_channels) == (before[0] + 1, before[1] + 1,
+                                           before[2])
     assert got.found.all()
     np.testing.assert_array_equal(got.bits, batch["bits"])
     chans = [0, 1, 37, 96, 128, 200, 254, 255]
@@ -1015,15 +1021,17 @@ def test_link_receiver_on_card_against_reference(dev):
                              ProfilerActivity.CUDA]) as prof:
         receive(x, lengths)
         torch.cuda.synchronize()
-    spans = {"pc.link.receive", "pc.link.search", "pc.link.decode",
-             "pc.link.slice", "pc.link.descramble"}
+    spans = {"pc.link.receive", "pc.link.search", "pc.kernel.frame_decode"}
     host = {e.name for e in prof.events()
             if e.device_type != DeviceType.CUDA}
     device = {e.name for e in prof.events()
               if e.device_type == DeviceType.CUDA}
     assert spans <= host, spans - host
-    assert not any(n.startswith("pc.link.") for n in device)
+    assert not any(n.startswith("pc.") for n in device)
+    assert not host & {"pc.link.decode", "pc.link.slice",
+                       "pc.link.descramble"}
     assert any("sync_search_kernel" in n for n in device)
+    assert any("frame_decode_kernel" in n for n in device)
 
 
 # ------------------------------------------------------------------ #
