@@ -38,6 +38,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "pothoscomms_tpu")
 SPANS = ("step call", "sync wait", "feed", "wait_inactive")
 SEED_MOD = 1 << 63
 NAME_CHARS = 120  # a device operation's name in the breakdown, cut to this
+PROGRAM = "pc."  # the program's span names start so
+HOST_OTHER = "host other"  # idle outside every host span
 
 
 class NoCard(RuntimeError):
@@ -229,60 +231,177 @@ def _union(intervals):
     return out
 
 
+def _innermost(open_spans) -> str:
+    """The innermost of the open spans, ``(duration, name)`` each: the
+    shortest, as nesting makes it (ties by name)."""
+    return min(open_spans)[1] if open_spans else HOST_OTHER
+
+
+def _root(open_spans) -> str:
+    """The outermost open program span, else the innermost open span."""
+    program = [v for v in open_spans if v[1].startswith(PROGRAM)]
+    return max(program)[1] if program else _innermost(open_spans)
+
+
+def _sweep(hosts, idle, probes):
+    """One sweep over the window. ``hosts`` are host spans ``(name,
+    start, end)``, ``idle`` the window's idle intervals and ``probes``
+    instants. Returns (idle_by_span, idle_by_root, the spans open at each
+    probe as ``(duration, name)``): every idle instant is charged once to
+    the innermost span open then, and once to :func:`_root`'s span, each
+    in microseconds. A span that starts or ends at a probe covers it."""
+    ev = [(a, 0, j) for j, (_, a, _) in enumerate(hosts)]
+    ev += [(b, 2, j) for j, (_, _, b) in enumerate(hosts)]
+    ev += [(a, 0, -1) for a, _ in idle] + [(b, 2, -1) for _, b in idle]
+    ev += [(t, 1, j) for j, t in enumerate(probes)]
+    ev.sort()
+    by_span: Dict[str, float] = {}
+    by_root: Dict[str, float] = {}
+    at: List[list] = [[] for _ in probes]
+    active: Dict[int, tuple] = {}
+    idling, prev = 0, None
+    for t, kind, j in ev:
+        if idling and t > prev:
+            inner, root = _innermost(active.values()), _root(active.values())
+            by_span[inner] = by_span.get(inner, 0.0) + (t - prev)
+            by_root[root] = by_root.get(root, 0.0) + (t - prev)
+        prev = t
+        if kind == 1:
+            at[j] = list(active.values())
+        elif j < 0:
+            idling += 1 if kind == 0 else -1
+        elif kind == 0:
+            n, a, b = hosts[j]
+            active[j] = (b - a, n)
+        else:
+            active.pop(j, None)
+    return by_span, by_root, at
+
+
 def summarize_trace(events, steps: int) -> dict:
     """Reduce a profiled sub-window to numbers. ``events`` are
     ``(kind, name, start_us, end_us)`` with kind "device" (a kernel, copy
-    or set on the card) or "host" (a span of :data:`SPANS`, or
-    "window", the span around the whole sub-window).
+    or set on the card) or "host" (a span of :data:`SPANS`, a program span,
+    named ``pc.*``, or "window", the span around the whole sub-window). A
+    device event may have a fifth element, the names of the program spans
+    open at its launch (:func:`trace_events`).
 
     Returns busy_s (the union of device intervals inside the window),
     window_s, kernel_s (the summed duration of the device events inside
-    the window), device_ops (the ten names of most device time) and
-    idle_gaps (the ten longest gaps between device work, each named by
-    the innermost host span at its midpoint)."""
-    windows = [(a, b) for k, n, a, b in events
-               if k == "host" and n == "window"]
+    the window), device_ops (the ten names of most device time), idle_gaps
+    (the ten longest gaps between device work, each named by the innermost
+    host span at its midpoint), and, in seconds:
+
+    - idle_by_span: every idle instant charged to the innermost host span
+      open then (else "host other");
+    - idle_by_root: the same idle charged to the outermost program span
+      open then, else to the innermost benchmark span, else "host other";
+    - device_by_span: for each program span, the device time of the
+      events launched inside an instance of it (a launch inside nested
+      spans counts toward each);
+    - device_unclaimed_s: the device time of events no program span
+      launched;
+
+    and program_spans, the number of instances of each program span in
+    the window."""
+    windows = [(e[2], e[3]) for e in events
+               if e[0] == "host" and e[1] == "window"]
     if not windows:
         return {}
     w0, w1 = windows[0]
-    dev = [(n, max(a, w0), min(b, w1)) for k, n, a, b in events
-           if k == "device" and b > w0 and a < w1]
-    busy = _union([(a, b) for _, a, b in dev])
+    dev = [(e[1], max(e[2], w0), min(e[3], w1), e[4] if len(e) > 4 else ())
+           for e in events if e[0] == "device" and e[3] > w0 and e[2] < w1]
+    busy = _union([(a, b) for _, a, b, _ in dev])
     busy_us = sum(b - a for a, b in busy)
     by_name: Dict[str, float] = {}
-    for n, a, b in dev:
+    by_span: Dict[str, float] = {}
+    unclaimed = 0.0
+    for n, a, b, spans in dev:
         by_name[n] = by_name.get(n, 0.0) + (b - a)
-    hosts = [(n, a, b) for k, n, a, b in events
-             if k == "host" and n != "window"]
-    gaps = []
+        for s in spans:
+            by_span[s] = by_span.get(s, 0.0) + (b - a)
+        if not spans:
+            unclaimed += b - a
+    hosts = [(e[1], e[2], e[3]) for e in events
+             if e[0] == "host" and e[1] != "window"]
+    idle = []
     edge = w0
     for a, b in busy + [[w1, w1]]:
         if a > edge:
-            mid = 0.5 * (edge + a)
-            inner = [(hb - ha, n) for n, ha, hb in hosts if ha <= mid <= hb]
-            gaps.append((min(inner)[1] if inner else "host other",
-                         (a - edge) * 1e-6))
+            idle.append((edge, a))
         edge = max(edge, b)
+    idle_span, idle_root, mids = _sweep(
+        hosts, idle, [0.5 * (a + b) for a, b in idle])
+    gaps = [(_innermost(o), (b - a) * 1e-6) for o, (a, b) in zip(mids, idle)]
     gaps.sort(key=lambda g: -g[1])
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ops = [(n[:NAME_CHARS], us) for n, us in ops]
+    program: Dict[str, int] = {}
+    for n, a, b in hosts:
+        if n.startswith(PROGRAM) and b > w0 and a < w1:
+            program[n] = program.get(n, 0) + 1
     return {
         "busy_s": busy_us * 1e-6,
         "window_s": (w1 - w0) * 1e-6,
-        "kernel_s": sum(b - a for _, a, b in dev) * 1e-6,
+        "kernel_s": sum(b - a for _, a, b, _ in dev) * 1e-6,
         "steps": steps,
         "device_ops": [[n, us * 1e-6] for n, us in ops],
         "idle_gaps": [[n, s] for n, s in gaps[:10]],
+        "idle_by_span": _seconds(idle_span),
+        "idle_by_root": _seconds(idle_root),
+        "device_by_span": _seconds(by_span),
+        "device_unclaimed_s": unclaimed * 1e-6,
+        "program_spans": program,
     }
+
+
+def _seconds(us: Dict[str, float]) -> Dict[str, float]:
+    """Microseconds by name as seconds, the most first."""
+    return {n: v * 1e-6 for n, v in sorted(us.items(), key=lambda kv: -kv[1])}
+
+
+def trace_events(fevents, device_type) -> tuple:
+    """The profiler's events (``prof.events()``) as :func:`summarize_trace`
+    takes them. A device event's program spans are those open at the start
+    of its launch's runtime call: the host event with the device event's
+    own id, linked to an op or named ``cu*``. The spans' own device rows
+    and the spin framing are left out. Returns (events, the number of
+    device events no program span claims)."""
+    keep = set(SPANS) | {"window"}
+    events, cuda, program, runtime = [], [], [], {}
+    for e in fevents:
+        if e.device_type == device_type:
+            if e.name not in keep and "spin_kernel" not in e.name:
+                cuda.append(e)  # not the spans' own rows, not the framing
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        if e.name in keep or e.name.startswith(PROGRAM):
+            events.append(("host", e.name, a, b))
+        if e.name.startswith(PROGRAM):
+            program.append((e.name, a, b))
+        if getattr(e, "linked_correlation_id", 0) or e.name.startswith("cu"):
+            runtime[e.id] = a   # a runtime call: the id of its device rows
+    launched = [e for e in cuda if e.id in runtime]
+    _, _, found = _sweep(program, [], [runtime[e.id] for e in launched])
+    spans = {id(e): {n for _, n in o} for e, o in zip(launched, found)}
+    unclaimed = 0
+    for e in cuda:
+        names = tuple(sorted(spans.get(id(e), ())))
+        unclaimed += not names
+        events.append(("device", e.name, e.time_range.start,
+                       e.time_range.end, names))
+    return events, unclaimed
 
 
 def profiled(loop, device) -> dict:
     """Run ``loop()`` (which returns the number of steps it ran) under
     ``torch.profiler``, inside a host span "window" that ends after a
-    synchronization, and summarize it (:func:`summarize_trace`). Two short
-    spin kernels on each side frame the window (the profiler tends to
-    lose the first device event of a session); they are outside it. The
-    events stay in memory."""
+    synchronization, and summarize it (:func:`trace_events`,
+    :func:`summarize_trace`). Two short spin kernels on each side frame
+    the window (the profiler tends to lose the first device event of a
+    session); they are outside it. The events stay in memory. The device
+    time no program span claims, and the idle and device time by span,
+    go to standard error."""
     import warnings
 
     import torch
@@ -306,17 +425,29 @@ def profiled(loop, device) -> dict:
             for _ in range(2):
                 torch.cuda._sleep(1000)
             sync(device)
-    names = set(SPANS) | {"window"}
-    events = []
-    for e in prof.events():
-        a, b = e.time_range.start, e.time_range.end
-        if e.device_type == DeviceType.CUDA:
-            if e.name in names or "spin_kernel" in e.name:
-                continue  # the spans' own device-side rows, the framing
-            events.append(("device", e.name, a, b))
-        elif e.name in names:
-            events.append(("host", e.name, a, b))
-    return summarize_trace(events, steps)
+    events, unclaimed = trace_events(prof.events(), DeviceType.CUDA)
+    tr = summarize_trace(events, steps)
+    if tr:
+        print_trace(tr, unclaimed)
+    return tr
+
+
+def print_trace(tr: dict, unclaimed: int) -> None:
+    """The traced window's charges on standard error."""
+    def top(d, k=12):
+        return ", ".join(f"{n} {v!r}" for n, v in list(d.items())[:k])
+
+    idle = tr["window_s"] - tr["busy_s"]
+    print(f"benchmark: traced device time no program span claims: "
+          f"{tr['device_unclaimed_s']!r} s of {tr['kernel_s']!r} s "
+          f"({unclaimed} device events)", file=sys.stderr)
+    print(f"benchmark: traced idle {idle!r} s of {tr['window_s']!r} s; by "
+          f"root (sum {sum(tr['idle_by_root'].values())!r}): "
+          f"{top(tr['idle_by_root'])}", file=sys.stderr)
+    print(f"benchmark: traced idle by span: {top(tr['idle_by_span'])}",
+          file=sys.stderr)
+    print(f"benchmark: traced device time by span: "
+          f"{top(tr['device_by_span'])}", file=sys.stderr)
 
 
 # ---------------------------------------------------------------------- #
@@ -372,6 +503,19 @@ def forbidden_modules() -> List[str]:
     ``pothoscomms_tpu``)."""
     return sorted(m for m in list(sys.modules)
                   if m.split(".")[0] in FORBIDDEN)
+
+
+def idle_pct(trace: Optional[dict], roots) -> Optional[float]:
+    """The share of the traced window, in %, in which the card idled while
+    the outermost program span open on the host was named with one of the
+    prefixes ``roots``, a tuple (``idle_by_root``). None without a trace,
+    a device event or a program span."""
+    if not trace or not trace.get("busy_s") or not trace.get("window_s") \
+            or not trace.get("program_spans"):
+        return None
+    idle = sum(s for n, s in trace["idle_by_root"].items()
+               if n.startswith(roots))
+    return 100.0 * idle / trace["window_s"]
 
 
 def percentile(values, q: float) -> float:

@@ -7,6 +7,7 @@ measurements."""
 
 import json
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -114,6 +115,50 @@ def test_fault_under_the_timed_path_is_caught(link_root, capsys, monkeypatch,
         assert res["checks"]["offset_err"]["value"] == 1.0
     else:
         assert res["checks"]["scale_rel"]["value"] > 5e-4
+
+
+@pytest.mark.parametrize("layout", ["as_sent", "int64", "fortran"])
+def test_payload_errors_by_hand(layout):
+    """Frames lost, bit errors of the found frames and frames that fail,
+    against the transmitted bits: a lost frame counts once, whatever its
+    bits. Payloads laid out otherwise than the transmitted bits (another
+    type, another order) are compared value by value."""
+    driver = harness.load_module(BENCH / "drivers" / "link_rx.py")
+    bits = np.zeros((4, 16), np.uint8)
+    got = bits.copy()
+    as_laid = {"as_sent": lambda g: g,
+               "int64": lambda g: g.astype(np.int64),
+               "fortran": np.asfortranarray}[layout]
+    found = np.array([1, 1, 0, 1], bool)
+
+    def errors():
+        frames = SimpleNamespace(found=found, bits=as_laid(got))
+        return driver.payload_errors(frames, bits)
+
+    assert errors() == (1, 0, 1)
+    got[1, [3, 9]] = 1
+    got[2, 0] = 1   # the lost frame's bits
+    assert errors() == (1, 2, 2)
+    got[3, 15] = 1
+    assert errors() == (1, 3, 3)
+
+
+def test_window_keeps_only_the_frames_it_checks(link_root):
+    """Each step's payloads are judged as it returns; the frames of the
+    steps the reservoir takes and of the last step are all that stay."""
+    cell = harness.Cell(json.loads((link_root / "BENCHMARK.json")
+                                   .read_text()), CELL, link_root)
+    ctx = harness.Context(cell, 3000000061, torch.device("cpu"), 0.0)
+    st = cell.driver.setup(ctx)
+    meas = cell.driver.measure(st, 0.5, False)
+    k = int(ctx.traffic["check_steps"])
+    assert meas["steps"] > k + 1
+    assert len(st.kept) <= k + 1 and st.i - 1 in st.kept
+    assert st.attempted == meas["steps"] * st.channels
+    assert st.payload == {"bit_errors": 0, "frames_lost": 0, "failed": 0}
+    checks, attempted, failed = cell.driver.check(st)
+    assert attempted == st.attempted and failed == 0
+    assert all(v <= lim for v, lim in checks.values())
 
 
 # ---------------------------------------------------------------------- #

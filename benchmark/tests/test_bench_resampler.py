@@ -225,19 +225,25 @@ def reader(stage):
         BENCH / "metrics" / f"kernel_roofline_pct.{stage}.py")
 
 
-def synthetic(k1_s=1.1e-3, other_s=2.4e-3, steps=10):
-    """A trace of ``steps`` steps: K1's product and operator kernels, a
-    cuBLAS product of the IIR and a copy, each step's time as given."""
+def synthetic(fir_s=1.1e-3, iir_s=2.4e-3, steps=10):
+    """A trace of ``steps`` steps: K1's product and operator kernels and
+    the operand's copy launched inside the FIR's core, the IIR's kernel and
+    a copy inside the IIR's, each core's time a step as given."""
     ops = [["void (anonymous namespace)::cgemm_tc_kernel(CUtensorMap, "
             "CUtensorMap, CUtensorMap, float*, long, int, int)",
-            0.98 * k1_s * steps],
+            0.78 * fir_s * steps],
+           ["void at::native::CatArrayBatchedCopy", 0.2 * fir_s * steps],
            ["void (anonymous namespace)::tf32_operator_kernel(float const*)",
-            0.02 * k1_s * steps],
-           ["sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x32",
-            0.6 * other_s * steps],
-           ["void at::native::CatArrayBatchedCopy", 0.4 * other_s * steps]]
-    return {"steps": steps, "kernel_s": (k1_s + other_s) * steps,
-            "device_ops": ops}
+            0.02 * fir_s * steps],
+           ["void (anonymous namespace)::iir_df2t_kernel<6, 2>",
+            0.9 * iir_s * steps],
+           ["void at::native::direct_copy_kernel", 0.1 * iir_s * steps]]
+    return {"steps": steps, "kernel_s": (fir_s + iir_s) * steps,
+            "device_ops": ops,
+            "device_by_span": {"pc.chain.IIRFilter": iir_s * steps,
+                               "pc.chain.FIRFilter": fir_s * steps,
+                               "pc.kernel.iir_df2t": 0.9 * iir_s * steps,
+                               "pc.kernel.cgemm": 0.8 * fir_s * steps}}
 
 
 def test_stage_readers_on_a_synthetic_trace():
@@ -252,16 +258,44 @@ def test_stage_readers_on_a_synthetic_trace():
     assert 9 < reader("iir").read(m) < 11
 
 
+def test_stage_readers_read_device_by_span():
+    """Each stage divides by the device time launched inside its core's
+    span, whatever the kernels' names: the operand's copy counts to the
+    resampler, and renaming or dropping K1's rows changes nothing."""
+    w = work(256, 131072)
+    base = {"work": w, "peaks": PEAKS, "trace": synthetic()}
+    renamed = synthetic()
+    renamed["device_ops"] = [["some_other_kernel", s]
+                             for _, s in renamed["device_ops"]]
+    for stage in ("resampler", "iir"):
+        read = reader(stage).read
+        assert read({**base, "trace": renamed}) == read(base)
+    moved = synthetic()
+    moved["device_by_span"]["pc.chain.FIRFilter"] *= 2
+    assert reader("resampler").read({**base, "trace": moved}) == \
+        pytest.approx(reader("resampler").read(base) / 2)
+    assert reader("iir").read({**base, "trace": moved}) == \
+        reader("iir").read(base)
+    for stage in ("resampler", "iir"):
+        src = (BENCH / "metrics" / f"kernel_roofline_pct.{stage}.py"
+               ).read_text()
+        assert "device_by_span" in src and "K1_KERNELS" not in src
+
+
 @pytest.mark.parametrize("stage", ["resampler", "iir"])
 def test_stage_readers_find_nothing_to_read(stage):
     w = work(256, 131072)
     read = reader(stage).read
-    no_k1 = synthetic()
-    no_k1["device_ops"] = no_k1["device_ops"][2:]
-    assert read({"work": w, "peaks": PEAKS, "trace": no_k1}) is None
+    no_span = synthetic()
+    no_span["device_by_span"] = {}
+    assert read({"work": w, "peaks": PEAKS, "trace": no_span}) is None
+    no_key = synthetic()
+    del no_key["device_by_span"]
+    assert read({"work": w, "peaks": PEAKS, "trace": no_key}) is None
     assert read({"work": w, "peaks": PEAKS}) is None
     assert read({"work": w, "peaks": None, "trace": synthetic()}) is None
     flat = {k: v for k, v in w.items() if k != "stages"}
     assert read({"work": flat, "peaks": PEAKS, "trace": synthetic()}) is None
-    cpu = {"steps": 4, "kernel_s": 0.0, "device_ops": []}
+    cpu = {"steps": 4, "kernel_s": 0.0, "device_ops": [],
+           "device_by_span": {}}
     assert read({"work": w, "peaks": PEAKS, "trace": cpu}) is None
