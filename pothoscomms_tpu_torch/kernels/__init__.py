@@ -26,5 +26,9 @@
 Each wrapper launches its kernel for a CUDA tensor, uses its plain
 PyTorch version for a CPU tensor, and counts its launches in
 ``<wrapper>.launches``. A launch's host enqueue runs inside the span
-``pc.kernel.<wrapper>`` (``parallel/profiling.annotate``).
+``pc.kernel.<wrapper>`` (``parallel/profiling.annotate``). A wrapper's
+first call on a card, where ``launches`` reads 0, runs inside the build
+span ``pc.build.first_launch.<wrapper>`` (``parallel/profiling.
+first_launch``), and a library's load inside ``pc.build.library.<name>``
+(:mod:`.build`).
 """

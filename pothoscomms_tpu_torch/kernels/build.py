@@ -11,6 +11,11 @@ report, is kept beside the library as ``lib<name>-<hash>.log``.
 
 There is no fallback: without nvcc, or when nvcc fails, :func:`load`
 raises.
+
+A load runs inside the build span ``pc.build.library.<name>``
+(``parallel/profiling.build``): the hash, nvcc where the library is
+missing, and the ``ctypes`` load; nvcc's seconds go to the build record's
+``compiled``.
 """
 
 from __future__ import annotations
@@ -22,7 +27,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
+
+from pothoscomms_tpu_torch.parallel import profiling
 
 
 def build_dir(package: Path) -> Path:
@@ -62,6 +70,11 @@ def find_nvcc() -> str:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` (once per source content) and load it."""
+    with profiling.build("pc.build.library." + name):
+        return _compile_and_load(name)
+
+
+def _compile_and_load(name: str) -> ctypes.CDLL:
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers
@@ -72,8 +85,10 @@ def load(name: str) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        t0 = time.perf_counter()
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
                               capture_output=True, text=True)
+        profiling.compiled(name, time.perf_counter() - t0)
         lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
             os.unlink(tmp)

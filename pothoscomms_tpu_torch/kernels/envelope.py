@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from pothoscomms_tpu_torch.kernels import build
-from pothoscomms_tpu_torch.parallel.profiling import annotate
+from pothoscomms_tpu_torch.parallel.profiling import (
+    annotate, first_launch, launching)
 
 
 def _check(mag, env0, L, Wr):
@@ -84,6 +85,8 @@ def envelope_rows(mag: torch.Tensor, env0: torch.Tensor, ga, gr, L: int,
         return envelope_rows_plain(mag, env0, ga, gr, L, Wr)
     if mag.device.type != "cuda":
         raise ValueError(f"envelope_rows: no kernel for device {mag.device}")
+    if not envelope_rows.launches and envelope_rows not in launching:
+        return first_launch(envelope_rows, mag, env0, ga, gr, L, Wr)
     if not (mag.is_contiguous() and env0.is_contiguous()):
         raise ValueError("envelope_rows: mag and env0 must be contiguous")
     P, T = mag.shape

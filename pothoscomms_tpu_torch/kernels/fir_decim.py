@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from pothoscomms_tpu_torch.kernels import build
-from pothoscomms_tpu_torch.parallel.profiling import annotate
+from pothoscomms_tpu_torch.parallel.profiling import (
+    annotate, first_launch, launching)
 
 MAX_TAPS = 256     # taps the kernel stages in shared memory
 MAX_DECIM = 64     # 64 phase rows of a 32-thread block take 156 KB
@@ -107,6 +108,8 @@ def fir_decim(x: torch.Tensor, carry: torch.Tensor, taps: torch.Tensor,
         return fir_decim_plain(x, carry, taps, decim)
     if x.device.type != "cuda":
         raise ValueError(f"fir_decim: no kernel for device {x.device}")
+    if not fir_decim.launches and fir_decim not in launching:
+        return first_launch(fir_decim, x, carry, taps, decim)
     if x.data_ptr() % 8 or carry.data_ptr() % 8 or taps.data_ptr() % 8:
         raise ValueError("fir_decim: x, carry and taps must be 8-byte "
                          "aligned")

@@ -26,7 +26,8 @@ import torch
 from pothoscomms_tpu_torch.kernels import build
 from pothoscomms_tpu_torch.ops.filter import dc_removal_rows
 from pothoscomms_tpu_torch.parallel.chain import freq_demod_planar
-from pothoscomms_tpu_torch.parallel.profiling import annotate
+from pothoscomms_tpu_torch.parallel.profiling import (
+    annotate, first_launch, launching)
 
 THREADS, PER = 256, 8    # csrc/fm_demod_dc.cu kThreads, kPer
 SPAN = THREADS * PER     # samples a block stages: its tile and halo
@@ -97,6 +98,8 @@ def fm_demod_dc(x: torch.Tensor, last: torch.Tensor, hists: torch.Tensor,
         return fm_demod_dc_plain(x, last, hists, D, casc)
     if x.device.type != "cuda":
         raise ValueError(f"fm_demod_dc: no kernel for device {x.device}")
+    if not fm_demod_dc.launches and fm_demod_dc not in launching:
+        return first_launch(fm_demod_dc, x, last, hists, D, casc)
     if not (x.is_contiguous() and last.is_contiguous()
             and hists.is_contiguous()):
         raise ValueError("fm_demod_dc: x, last and hists must be contiguous")

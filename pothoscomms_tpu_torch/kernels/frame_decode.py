@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from pothoscomms_tpu_torch.kernels import build
-from pothoscomms_tpu_torch.parallel.profiling import annotate
+from pothoscomms_tpu_torch.parallel.profiling import (
+    annotate, first_launch, launching)
 
 MAX_LENGTH = (1 << 12) - 1          # the header's 12-bit payload length
 # keystream bits the descrambler reads at most: the longest payload, then
@@ -115,6 +116,11 @@ def frame_decode(arrays, x: torch.Tensor, lengths: torch.Tensor,
         raise ValueError(f"frame_decode: no kernel for device {x.device}; "
                          "on the host the link decodes a channel at a time "
                          "(parallel/link.decode_frame)")
+    if not frame_decode.launches and frame_decode not in launching:
+        return first_launch(frame_decode, arrays, x, lengths, keystream, out,
+                            n_bits=n_bits, sw=sw, w=w, fw=fw, dw=dw, mag=mag,
+                            dur=dur, header_id=header_id,
+                            last_symbol=last_symbol)
     C, lp = x.shape[:2]
     sym = complex(last_symbol).conjugate()
     with annotate("pc.kernel.frame_decode"), torch.cuda.device(x.device):

@@ -32,7 +32,9 @@ import torch
 
 from pothoscomms_tpu_torch.kernels import build
 from pothoscomms_tpu_torch.ops import filter as fops
-from pothoscomms_tpu_torch.parallel.profiling import annotate
+from pothoscomms_tpu_torch.parallel import profiling
+from pothoscomms_tpu_torch.parallel.profiling import (
+    annotate, first_launch, launching)
 
 MAX_ORDER = 8      # csrc/iir_df2t.cu kMaxOrder: the state in registers
 CHUNK = 32         # csrc kChunk: samples a thread runs
@@ -92,7 +94,11 @@ def tables(b, a, seg_len: int = 0):
     these computed in float64 from the taps as given and then rounded, as
     the blocked form's operators are. None where a table is not finite in
     float32 (an unstable filter) or where the algorithm on them strays
-    past STRAY (:func:`stray`: an ill-conditioned filter)."""
+    past STRAY (:func:`stray`: an ill-conditioned filter). Each is
+    computed once for its taps (and ``seg_len``), inside the build span
+    ``pc.build.iir_df2t.tables``, and the stray inside
+    ``pc.build.iir_df2t.stray``: at the IIR core's first step, which asks
+    :func:`engages`."""
     key = (tuple(np.asarray(b, np.float64).tolist()),
            tuple(np.asarray(a, np.float64).tolist()))
     coef = _tables(*key, seg_len)
@@ -101,6 +107,11 @@ def tables(b, a, seg_len: int = 0):
 
 @lru_cache(maxsize=64)
 def _tables(b, a, seg_len):
+    with profiling.build("pc.build.iir_df2t.tables", key=(b, a, seg_len)):
+        return _tables_f32(b, a, seg_len)
+
+
+def _tables_f32(b, a, seg_len):
     b64, a64 = np.array(b), np.array(a)
     order = len(b64) - 1
     _, _, m, g = fops.iir_blocked_operators(b64, a64, CHUNK)
@@ -169,6 +180,11 @@ def stray(b, a) -> float:
 
 @lru_cache(maxsize=64)
 def _stray(b, a) -> float:
+    with profiling.build("pc.build.iir_df2t.stray", key=(b, a)):
+        return _stray_probe(b, a)
+
+
+def _stray_probe(b, a) -> float:
     from scipy.signal import lfilter
 
     coef = _tables(b, a, 0)
@@ -277,6 +293,8 @@ def iir_df2t(x: torch.Tensor, z: torch.Tensor, b, a):
         return iir_df2t_plain(x, z, b, a)
     if x.device.type != "cuda":
         raise ValueError(f"iir_df2t: no kernel for device {x.device}")
+    if not iir_df2t.launches and iir_df2t not in launching:
+        return first_launch(iir_df2t, x, z, b, a)
     if x.data_ptr() % 4 or z.data_ptr() % 4:
         raise ValueError("iir_df2t: x and z must be 4-byte aligned")
     R, t, width = x.shape

@@ -33,7 +33,8 @@ import torch
 
 from pothoscomms_tpu_torch.kernels import build
 from pothoscomms_tpu_torch.parallel import cplx
-from pothoscomms_tpu_torch.parallel.profiling import annotate
+from pothoscomms_tpu_torch.parallel.profiling import (
+    annotate, first_launch, launching)
 
 # window samples in one tile of the plain version's correlation,
 # [channels, offsets, sw]: each float32 plane of it is 64 MB
@@ -169,6 +170,8 @@ def sync_search(x: torch.Tensor, pre: torch.Tensor, thr: float, sw: int,
         return sync_search_plain(x, pre, thr, sw, w, dw, npre, n)
     if x.device.type != "cuda":
         raise ValueError(f"sync_search: no kernel for device {x.device}")
+    if not sync_search.launches and sync_search not in launching:
+        return first_launch(sync_search, x, pre, thr, sw, w, dw, npre, n)
     if not (x.is_contiguous() and pre.is_contiguous()):
         raise ValueError("sync_search: x and pre must be contiguous")
     C, L = x.shape[0], x.shape[1]

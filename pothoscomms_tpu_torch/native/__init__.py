@@ -7,6 +7,9 @@ The library is built with g++ at first use into
 checkout (the hash covers the source and the flags), beside the CUDA
 libraries of :mod:`pothoscomms_tpu_torch.kernels.build`. There is no
 fallback: without g++, or when g++ fails, :func:`get_lib` raises. The
+load runs inside the build span ``pc.build.library.comms_native``, g++'s
+seconds going to the build record's ``compiled``
+(``parallel/profiling.build``). The
 Python ``GaloisLFSR`` of ``blocks/digital.py`` stays as the contract the
 tests hold this library to.
 """
@@ -19,11 +22,13 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
 
 from pothoscomms_tpu_torch.kernels.build import BUILD_DIR
+from pothoscomms_tpu_torch.parallel import profiling
 
 SRC = Path(__file__).resolve().parent / "src" / "comms_native.cpp"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
@@ -41,6 +46,11 @@ class _GLfsrState(ctypes.Structure):
 @functools.lru_cache(maxsize=None)
 def get_lib() -> ctypes.CDLL:
     """Build (once per source content) and load the library."""
+    with profiling.build("pc.build.library.comms_native"):
+        return _build_and_load()
+
+
+def _build_and_load() -> ctypes.CDLL:
     digest = hashlib.sha256(SRC.read_bytes()
                             + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"libcomms_native-{digest}.so"
@@ -48,8 +58,10 @@ def get_lib() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        t0 = time.perf_counter()
         proc = subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", tmp],
                               capture_output=True, text=True)
+        profiling.compiled("comms_native", time.perf_counter() - t0)
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"g++ failed on {SRC.name} (exit "

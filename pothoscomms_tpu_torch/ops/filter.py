@@ -206,20 +206,15 @@ def rational_fir_mm(x: torch.Tensor, history: torch.Tensor, gr, gi,
     new_history the last K-1 inputs. The block and its tail are one
     operand against [T1; T0]: one product on the K1 kernel.
 
-    The operand's build runs inside the span ``pc.op.rational_operand``;
-    ``rational_fir_mm.by_shape`` counts the calls at each (C, T, b_in,
-    b_out, K-1)."""
+    The operand's build runs inside the span ``pc.op.rational_operand``.
+    """
     c, t, _ = x.shape
     if t % b_in:
         raise ValueError(f"T={t} is not a multiple of the block {b_in}")
     with annotate("pc.op.rational_operand"):
         a = rational_operand(x, history, b_in, gr.shape[0] - b_in)
     y = cgemm(a, gr, gi).reshape(c, (t // b_in) * b_out, 2)
-    rational_fir_mm.by_shape[(c, t, b_in, b_out, history.shape[1])] += 1
     return y, x[:, t - history.shape[1]:].contiguous()
-
-
-rational_fir_mm.by_shape = collections.Counter()
 
 
 # ---------------------------------------------------------------------- #

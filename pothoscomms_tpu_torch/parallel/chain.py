@@ -40,7 +40,6 @@ chain, :func:`freq_demod_planar`.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 
 import numpy as np
@@ -55,7 +54,7 @@ from pothoscomms_tpu_torch.kernels.fir_fft_fused import (
     ONE_PASS_PP, fused_chain_consts, one_pass_step)
 from pothoscomms_tpu_torch.parallel import cplx
 from pothoscomms_tpu_torch.parallel.fft import fft_planar
-from pothoscomms_tpu_torch.parallel.profiling import annotate
+from pothoscomms_tpu_torch.parallel.profiling import annotate, build
 
 
 def _planes(z: np.ndarray):
@@ -109,10 +108,8 @@ def fir_multichannel(x: torch.Tensor, history: torch.Tensor,
     Returns (y [C, ceil(T/decim), 2], new_history [C, K-1, 2]).
 
     The ``cat``, the convolution and the carry run inside the span
-    ``pc.op.conv_fir``; ``fir_multichannel.calls`` counts the calls and
-    ``fir_multichannel.by_shape`` each (C, T, K, decim).
+    ``pc.op.conv_fir``.
     """
-    c, t, _ = x.shape
     k = kernel.shape[-1]
     with annotate("pc.op.conv_fir"):
         xin = torch.cat([history, x], dim=1)           # [C, K-1+T, 2]
@@ -120,13 +117,7 @@ def fir_multichannel(x: torch.Tensor, history: torch.Tensor,
             out = F.conv1d(xin.permute(0, 2, 1), kernel, stride=decim)
         y = out.permute(0, 2, 1)                       # [C, T', 2]
         new_hist = xin[:, xin.shape[1] - (k - 1):].contiguous()
-    fir_multichannel.calls += 1
-    fir_multichannel.by_shape[(c, t, k, decim)] += 1
     return y, new_hist
-
-
-fir_multichannel.calls = 0
-fir_multichannel.by_shape = collections.Counter()
 
 
 def fir_toeplitz_matrices(taps, block: int = 128):
@@ -349,21 +340,25 @@ class SplitFirFftChain(nn.Module):
     its operators as buffers on ``device`` (the card unless the caller
     names another): ``wr`` [R, R] complex64, ``gr``, ``gi``
     [R, pp + W, W]. Called as ``run(x, carry) -> (spectra, carry)``, the
-    carry being the last K-1 raw inputs, as :class:`FirFftChain`'s."""
+    carry being the last K-1 raw inputs, as :class:`FirFftChain`'s. The
+    operators are built inside the build span ``pc.build.fir_fft.split``.
+    """
 
     def __init__(self, taps, nbins: int, R: int, pp: int = 64, device=None):
         super().__init__()
         taps = np.asarray(taps)
         self.nbins, self.k, self.R, self.pp = nbins, len(taps), R, pp
-        ops, wr = split_stream_fir_fft_operators(taps, nbins, R, pp)
-        stacked = [stack_combined_operators(g0, g1) for g0, g1 in ops]
         device = placement.resolve(device)
-        self.register_buffer("wr", torch.from_numpy(
-            wr.astype(np.complex64)).to(device))
-        self.register_buffer("gr", torch.stack([s[0] for s in stacked])
-                             .to(device))
-        self.register_buffer("gi", torch.stack([s[1] for s in stacked])
-                             .to(device))
+        with build("pc.build.fir_fft.split",
+                   key=(self.k, nbins, R, pp, device)):
+            ops, wr = split_stream_fir_fft_operators(taps, nbins, R, pp)
+            stacked = [stack_combined_operators(g0, g1) for g0, g1 in ops]
+            self.register_buffer("wr", torch.from_numpy(
+                wr.astype(np.complex64)).to(device))
+            self.register_buffer("gr", torch.stack([s[0] for s in stacked])
+                                 .to(device))
+            self.register_buffer("gi", torch.stack([s[1] for s in stacked])
+                                 .to(device))
 
     def forward(self, x: torch.Tensor, carry: torch.Tensor):
         return split_step(x, carry, self.wr, self.gr, self.gi, self.nbins,
@@ -432,7 +427,10 @@ class FirFftChain(nn.Module):
 
     The formulation (``form``) is :func:`fir_fft_form`'s answer for the
     taps, ``nbins``, ``decim`` and ``block``; its operators are buffers on
-    ``device`` (the card unless the caller names another).
+    ``device`` (the card unless the caller names another), built inside
+    the build span ``pc.build.fir_fft.<form>`` keyed by (form, K, nbins,
+    block, decim, device): a chain of a shape built before in the
+    process counts as a rebuild.
 
     With decim > 1 the block must be a multiple of decim * nbins, so that
     every block starts on the decimation's phase and ends on a window.
@@ -450,6 +448,15 @@ class FirFftChain(nn.Module):
         self.nbins, self.k, self.decim = nbins, len(taps), decim
         self.prev_pad = min(128, nbins)
         self.form = fir_fft_form(self.k, nbins, decim, block)
+        device = placement.resolve(device)
+        self.span = "pc.fir_fft." + self.form
+        with build("pc.build.fir_fft." + self.form,
+                   key=(self.form, self.k, nbins, block, decim, device)):
+            self._build(taps, device)
+
+    def _build(self, taps, device) -> None:
+        """The form's constants and operators, as buffers on ``device``."""
+        nbins = self.nbins
         if self.form == "one_pass":
             H, gt = fused_chain_consts(taps, nbins, ONE_PASS_PP)
             ops = dict(H=H, gt=gt)
@@ -466,8 +473,6 @@ class FirFftChain(nn.Module):
                 np.stack([h.real, h.imag], -1).astype(np.float32)))
         else:
             ops = dict(kernel=complex_fir_kernel(taps))
-        self.span = "pc.fir_fft." + self.form
-        device = placement.resolve(device)
         for name, op in ops.items():
             self.register_buffer(name, op.to(device))
 

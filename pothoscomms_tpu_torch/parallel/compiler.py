@@ -46,7 +46,8 @@ from pothoscomms_tpu_torch.core.dtypes import DType
 from pothoscomms_tpu_torch.kernels.fm_demod_dc import fits, fm_demod_dc
 from pothoscomms_tpu_torch.parallel import cplx
 from pothoscomms_tpu_torch.parallel.chain import operators_from_numpy
-from pothoscomms_tpu_torch.parallel.profiling import annotate
+from pothoscomms_tpu_torch.parallel.profiling import (annotate, build,
+                                                      identity)
 
 
 def fm_pair(first, second):
@@ -99,7 +100,12 @@ def compile_chain(blocks: Sequence[Any], channels: int, device=None):
     Returns (step, carry0): ``step(x, carry) -> (y, carry')``; each
     block's core runs inside its span, ``pc.chain.<Class>``, and the FM
     pair's one core (:func:`fm_pair`) inside
-    ``pc.chain.FreqDemod+DCRemoval``.
+    ``pc.chain.FreqDemod+DCRemoval``. Each block's ``device_core`` is
+    built inside the build span ``pc.build.core.<Class>``, keyed by the
+    block, the channels and the device: compiling a block again is a
+    rebuild. The FM pair builds nothing of its own: F1 runs on the two
+    single cores' carries, and its first call is
+    ``pc.build.first_launch.fm_demod_dc``.
     Raises TypeError for blocks that don't provide a device core.
     """
     cores = []
@@ -112,7 +118,9 @@ def compile_chain(blocks: Sequence[Any], channels: int, device=None):
                 f"{type(blk).__name__} has no device_core; it cannot be "
                 "fused (run it in the streaming executor instead)"
             )
-        carry0, step = fn(channels, device=device)
+        with build("pc.build.core." + type(blk).__name__,
+                   key=(identity(blk), channels, device)):
+            carry0, step = fn(channels, device=device)
         cores.append(step)
         carries.append(carry0)
     pairs = _pairs(blocks)

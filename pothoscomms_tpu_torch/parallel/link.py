@@ -75,7 +75,7 @@ from pothoscomms_tpu_torch.kernels import frame_decode as d1
 from pothoscomms_tpu_torch.native import NativeLfsr
 from pothoscomms_tpu_torch.ops.framing import bucket_len, sync_search_planar
 from pothoscomms_tpu_torch.parallel import cplx
-from pothoscomms_tpu_torch.parallel.profiling import annotate
+from pothoscomms_tpu_torch.parallel.profiling import annotate, build
 
 PILOT_BITS = 8  # known-zero prefix/suffix resolving bit-clock alignment
 
@@ -373,7 +373,9 @@ def make_link_receiver(channels: int, window: int, n_bits: int, *,
     one): the S1 search of :func:`make_channel_search`, its padded length
     ``lp`` and offsets ``n_pad``, and the decode's settings; on a card
     also D1's library, the descrambler's keystream on the card, D1's
-    output and a page-locked host buffer for it.
+    output and a page-locked host buffer for it; all of it inside the
+    build span ``pc.build.link.receiver``, keyed by (channels, window,
+    n_bits, device).
 
     Returns ``receive(x, lengths, keep_arrays=False) -> LinkFrames``:
     x [C, L, 2] planar float32 on the device, L <= lp (zero-padded to lp
@@ -383,27 +385,29 @@ def make_link_receiver(channels: int, window: int, n_bits: int, *,
     ``keep_arrays`` also copies S1's arrays to the host. ``receive.lp``
     and ``receive.n_pad`` give the search's shape."""
     dev = placement.resolve(device)
-    search, lp, n_pad = make_channel_search(preamble, symbol_width,
-                                            data_width, input_threshold,
-                                            window, device=dev)
-    settings = dict(poly=poly, seed=seed, header_id=header_id,
-                    symbol_width=symbol_width, data_width=data_width,
-                    preamble=preamble, device=dev)
-    on_card = dev.type == "cuda"
-    if on_card:
-        d1.load()
-        geometry = dict(
-            frame_geometry(preamble, symbol_width, data_width),
-            n_bits=n_bits, dw=data_width, header_id=header_id,
-            last_symbol=complex(np.asarray(preamble, np.complex128)[-1]))
-        # additive descrambling is an XOR with the keystream, whatever the
-        # data: the /comms/descrambler block's LFSR, run on zeros
-        keystream = torch.from_numpy(
-            NativeLfsr(poly, seed).keystream(d1.KEYSTREAM_BITS)).to(dev)
-        records = torch.empty((channels, d1.record_bytes(n_bits)),
-                              dtype=torch.uint8, device=dev)
-        host_records = torch.empty(records.shape, dtype=torch.uint8,
-                                   pin_memory=True)
+    with build("pc.build.link.receiver", key=(channels, window, n_bits, dev)):
+        search, lp, n_pad = make_channel_search(preamble, symbol_width,
+                                                data_width, input_threshold,
+                                                window, device=dev)
+        settings = dict(poly=poly, seed=seed, header_id=header_id,
+                        symbol_width=symbol_width, data_width=data_width,
+                        preamble=preamble, device=dev)
+        on_card = dev.type == "cuda"
+        if on_card:
+            d1.load()
+            geometry = dict(
+                frame_geometry(preamble, symbol_width, data_width),
+                n_bits=n_bits, dw=data_width, header_id=header_id,
+                last_symbol=complex(np.asarray(preamble,
+                                               np.complex128)[-1]))
+            # additive descrambling is an XOR with the keystream, whatever
+            # the data: the /comms/descrambler block's LFSR, run on zeros
+            keystream = torch.from_numpy(
+                NativeLfsr(poly, seed).keystream(d1.KEYSTREAM_BITS)).to(dev)
+            records = torch.empty((channels, d1.record_bytes(n_bits)),
+                                  dtype=torch.uint8, device=dev)
+            host_records = torch.empty(records.shape, dtype=torch.uint8,
+                                       pin_memory=True)
 
     def card_decode(x, lengths, arrays):
         """D1 over the batch, and the copy of its records to the host

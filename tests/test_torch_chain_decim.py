@@ -5,8 +5,8 @@ against the benchmark's plain float64 reference of the decimating
 channelizer (``benchmark/reference/spectrum_fir64_decim2_fft1024.py``),
 the rule's answers, K4's wrapper and its refusals, the block sizes that
 keep the decimation's phase, the spans ``pc.fir_fft.polyphase`` /
-``pc.kernel.fir_decim`` and ``pc.op.conv_fir``, and the counters
-``fir_decim.launches``, ``fir_multichannel.calls`` and ``.by_shape``.
+``pc.kernel.fir_decim`` and ``pc.op.conv_fir`` (one conv FIR a step
+counted by its span), and the counter ``fir_decim.launches``.
 
 Tolerance: spectra within 1e-5 of max |reference| (float32 sums over at
 most 256 taps and an FFT, against float64), K4 within 1e-5 of max |plain|
@@ -228,16 +228,20 @@ def test_conv_fir_span_lies_inside_the_conv_form_span():
 
 
 def test_conv_fir_counters_count_one_call_a_step():
+    """One conv FIR a step, seen by its span under a CPU profiler: one
+    ``pc.op.conv_fir`` inside each step's ``pc.fir_fft.conv``, at (C, T,
+    K, decim) = (3, 4096, 257, 2), which give the step's spectra [3, 2,
+    1024, 2] and its carry [3, 256, 2]."""
     rng = np.random.default_rng(42)
     run, carry = chain.fir_fft_chain(_taps(rng, 257), 1024, 3, 4096,
                                      decim=2, device="cpu")
-    calls = chain.fir_multichannel.calls
-    shape = chain.fir_multichannel.by_shape[(3, 4096, 257, 2)]
-    for i in range(1, 4):
-        _, carry = run(_x(rng, 3, 4096), carry)
-        assert chain.fir_multichannel.calls == calls + i
-        assert chain.fir_multichannel.by_shape[(3, 4096, 257, 2)] == \
-            shape + i
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            spec, carry = run(_x(rng, 3, 4096), carry)
+        assert [s[0] for s in host_spans(prof)] == ["pc.fir_fft.conv",
+                                                    "pc.op.conv_fir"]
+        assert spec.shape == (3, 2, 1024, 2)
+        assert carry.shape == (3, 256, 2)
 
 
 def test_polyphase_form_calls_fir_decim_once_a_step(monkeypatch):
@@ -254,14 +258,11 @@ def test_polyphase_form_calls_fir_decim_once_a_step(monkeypatch):
         return wrapped(*args)
 
     monkeypatch.setattr(k4, "fir_decim", counted)
-    conv_calls = chain.fir_multichannel.calls
-    for i in range(1, 4):
-        _, carry = run(_x(rng, 3, 4096), carry)
-        assert calls == [(3, 4096, 2)] * i
-    assert chain.fir_multichannel.calls == conv_calls
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        run(_x(rng, 3, 4096), carry)
-    assert [s[0] for s in host_spans(prof)] == ["pc.fir_fft.polyphase"]
+        for i in range(1, 4):
+            _, carry = run(_x(rng, 3, 4096), carry)
+            assert calls == [(3, 4096, 2)] * i
+    assert [s[0] for s in host_spans(prof)] == ["pc.fir_fft.polyphase"] * 3
 
 
 @pytest.mark.cuda

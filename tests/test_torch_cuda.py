@@ -1551,3 +1551,53 @@ def test_bench_suite_workload_on_card_passes_its_gates(dev, name, sizes,
     assert suite.passed(line), line
     if kernel:
         assert wrappers[kernel].launches > before, line
+
+
+BUILD_PROBE = """
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from pothoscomms_tpu_torch.parallel import profiling
+from pothoscomms_tpu_torch.parallel.chain import fir_fft_chain
+rng = np.random.default_rng(7)
+taps = (rng.normal(size=64) + 1j * rng.normal(size=64)) / 64
+run, carry = fir_fft_chain(taps, 1024, 256, 16384, device="cuda")
+x = torch.randn(256, 16384, 2, device="cuda")
+snap = profiling.build_record()
+run(x, carry)
+torch.cuda.synchronize()
+step = profiling.build_record(since=snap)
+snap = profiling.build_record()
+run(x, carry)
+torch.cuda.synchronize()
+print(json.dumps({"record": profiling.build_record(), "step": step,
+                  "warm": profiling.build_record(since=snap)}))
+"""
+
+
+def test_first_step_records_k3s_library_and_first_launch(dev):
+    """In a fresh process, one step of ``fir_fft_chain(64 taps, 1024,
+    256, 16384)`` (the one-pass form) records K3's library load and its
+    first launch, once each; the second step adds nothing; and a second
+    process, the build cache now warm, compiles nothing."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    runs = [json.loads(subprocess.run(
+        [sys.executable, "-c", BUILD_PROBE, root], capture_output=True,
+        text=True, check=True, timeout=600).stdout.splitlines()[-1])
+        for _ in range(2)]
+    for got in runs:
+        step = got["step"]["builds"]
+        for name in ("pc.build.library.fir_fft_fused",
+                     "pc.build.first_launch.fir_fft_fused"):
+            assert step[name]["first_n"] == 1, (name, step)
+            assert step[name]["again_n"] == 0
+            assert got["record"]["builds"][name]["first_n"] == 1
+        assert got["record"]["builds"]["pc.build.fir_fft.one_pass"][
+            "first_n"] == 1
+        assert got["warm"] == {"builds": {}, "compiled": {}}
+    assert runs[1]["record"]["compiled"] == {}

@@ -5,8 +5,8 @@ registry's blocks, chained steps against the benchmark's plain float64
 reference (``benchmark/reference/resampler_fir99_3to2_ellip6.py``), the
 designs, the spans ``pc.op.rational_operand``, ``pc.op.iir_products`` and
 ``pc.op.iir_scan`` (the IIR's blocked form, on the CPU; on a card the IIR
-is I1, ``pc.kernel.iir_df2t``), and the counters
-``rational_fir_mm.by_shape``, ``iir_blocked_step.by_shape``,
+is I1, ``pc.kernel.iir_df2t``), one resampler product a step counted by
+its span, and the counters ``iir_blocked_step.by_shape``,
 ``IIRFilter.fallback_steps`` and ``iir_df2t.launches``.
 
 Tolerance: outputs and the IIR's state within 1e-5 of max |reference|:
@@ -138,29 +138,34 @@ def test_spans_nest_inside_their_blocks():
 
 @pytest.mark.parametrize("swap", [False, True])
 def test_counters_count_one_call_a_step(monkeypatch, swap):
-    """One resampler product and one blocked IIR step a step, at (C, T,
-    b_in, b_out, K-1) = (3, 4096, 256, 384, 32) and (P, T, L, order) =
-    (6, 6144, 256, 6), and no other shape; the IIR's shape sets
-    ceil(log2(6144 / 256)) = 5 scan rounds a step; no fallback. ``swap``: with both module names rebound to
+    """One resampler product and one blocked IIR step a step: one
+    ``pc.op.rational_operand`` span a step under a CPU profiler, at
+    (C, T) = (3, 4096) in and 6144 out, the FIR's carry its K-1 = 32
+    last inputs; the IIR at (P, T, L, order) = (6, 6144, 256, 6) and no
+    other shape, which sets ceil(log2(6144 / 256)) = 5 scan rounds a
+    step; no fallback. ``swap``: with both module names rebound to
     wrappers that carry the originals' attributes, as a caller that notes
-    the calls does, the counters still count."""
+    the calls does, the span and the counters still count."""
     rng = np.random.default_rng(63)
-    rat, iir = fops.rational_fir_mm.by_shape, fops.iir_blocked_step.by_shape
+    iir = fops.iir_blocked_step.by_shape
     if swap:
         for name in ("rational_fir_mm", "iir_blocked_step"):
             fn = getattr(fops, name)
             monkeypatch.setattr(fops, name, functools.wraps(fn)(
                 lambda *a, _fn=fn, **k: _fn(*a, **k)))
     step, carry = _chain(3, 4096)
-    r_key, i_key = (3, 4096, 256, 384, 32), (6, 6144, 256, 6)
-    before = (rat.copy(), iir.copy(), IIRFilter.fallback_steps)
+    i_key = (6, 6144, 256, 6)
+    before = (iir.copy(), IIRFilter.fallback_steps)
     rounds = math.ceil(math.log2(4096 * 3 // 2 // 256))
     assert rounds == (i_key[1] // i_key[2] - 1).bit_length() == 5
     for i in range(1, 4):
-        _, carry = step(_x(rng, 3, 4096), carry)
-        assert rat - before[0] == {r_key: i}
-        assert iir - before[1] == {i_key: i}
-        assert IIRFilter.fallback_steps == before[2]
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            y, carry = step(_x(rng, 3, 4096), carry)
+        names = [s[0] for s in host_spans(prof)]
+        assert names.count("pc.op.rational_operand") == 1
+        assert y.shape == (3, 6144, 2) and carry[0].shape == (3, 32, 2)
+        assert iir - before[0] == {i_key: i}
+        assert IIRFilter.fallback_steps == before[1]
 
 
 def test_fallback_counts_a_step_no_block_length_divides():
